@@ -1,0 +1,334 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (`deepprove_tpu_torch`) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+  1. build   - nvcc builds the Poseidon2 Merkle-compression kernel for
+               sm_90a from `deepprove_tpu_torch/csrc`, timed; the card's
+               name and power limit as nvidia-smi reports them.
+  2. kernels - the kernel against its plain torch version on random levels
+               (bit-identical at every size, ragged ones included), the
+               golden Merkle root, and kernel / plain times at 2^19 pairs
+               beside the least time the card could take.
+  3. slice   - the Dense chain [4, 1024, 1024, 3] at the reference's
+               parameters (200 queries, rate 1/2, basecode 2^7):
+               Model.run -> Context.generate -> Prover.prove -> verify on
+               the card, the verifier rejecting a changed output, and the
+               kernel's launches in that run; then the medians of three warm
+               setup/prove/verify runs and the transcript's device copies.
+  4. reference - the Dense chain [16, 32, 8] proved on the card must equal
+               the JAX package's proof frozen in tests/torch_reference.json.
+Then the kernel table line and, last, the device line. Any failure raises
+and exits non-zero; without a CUDA device it exits 2 and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+sys.path.insert(1, os.path.join(ROOT, "tests"))
+
+# H100 SXM device-memory rate (NVIDIA data sheet); the multiply rate is
+# computed from the card itself (SM count x clock) in `_int_mul_rate`.
+HBM_BYTES_PER_S = 3.35e12
+INT32_MULS_PER_SM_PER_CLOCK = 64  # sm_90 32-bit IMAD throughput
+# Goldilocks muls per pair: 2 permutations x (8*8*4 + 22*(4 + 8)); each a
+# 64x64 -> 128-bit product = four 32x32 -> 64 partial products = 8 32-bit
+# multiplies. Bytes per pair: 8 u64 read + 4 u64 written.
+MULS_PER_PAIR = 2 * (8 * 8 * 4 + 22 * (4 + 8))
+INT32_MULS_PER_MUL = 8
+BYTES_PER_PAIR = 12 * 8
+WARM_RUNS = 3  # warm setup/prove/verify repeats after the cold run; medians reported
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def _int_mul_rate() -> float:
+    """32-bit integer multiplies per second at the card's max SM clock."""
+    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_MULS_PER_SM_PER_CLOCK * mhz * 1e6
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean device time of fn() in ms over `iters` runs, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def wall_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def phase_build():
+    from deepprove_tpu_torch import native
+    from deepprove_tpu_torch.hashing import poseidon2_cuda
+
+    t0 = time.perf_counter()
+    so = poseidon2_cuda.build()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native.get_lib()
+    host_build_s = time.perf_counter() - t0
+    card = nvidia_smi("name,power.limit")
+    print(card, flush=True)
+    usage = subprocess.run(
+        ["cuobjdump", "-res-usage", so], capture_output=True, text=True
+    ).stdout
+    regs = [ln.strip() for ln in usage.splitlines() if "REG" in ln]
+    emit({
+        "phase": "build", "ok": True, "nvcc_s": build_s, "gcc_s": host_build_s,
+        "library": os.path.relpath(so, ROOT), "card": card, "resource_usage": regs,
+        "torch": torch.__version__, "cuda": torch.version.cuda,
+    })
+    return card
+
+
+def phase_kernels():
+    from deepprove_tpu_torch.fields import gf, host
+    from deepprove_tpu_torch.hashing import poseidon2_cuda as pc
+    from deepprove_tpu_torch.pcs.merkle import MerkleTree
+
+    rng = np.random.default_rng(7)
+    sizes = [1, 3, 1000, (1 << 17) + 5, 1 << 19]
+    mismatches, max_err, per_size = 0, 0, {}
+    level = None
+    for m in sizes:
+        level = gf.from_u64(rng.integers(0, host.P, size=(4, 2 * m), dtype=np.uint64), "cuda")
+        got = pc.compress_level_cuda(level)
+        want = pc.compress_level_plain(level)
+        torch.cuda.synchronize()
+        bad = (got != want).any(dim=0)
+        n_bad = int(bad.sum())
+        if n_bad:
+            g, w = gf.to_u64(got[:, bad]), gf.to_u64(want[:, bad])
+            max_err = max(max_err, max(abs(int(a) - int(b)) for a, b in zip(g.ravel(), w.ravel())))
+        mismatches += n_bad
+        per_size[str(m)] = n_bad
+
+    with open(os.path.join(ROOT, "tests", "golden_vectors.json")) as f:
+        golden = json.load(f)["merkle_root_0to15"]
+    root = MerkleTree.from_leaves(gf.from_u64(np.arange(16, dtype=np.uint64), "cuda")).root
+    golden_ok = list(root) == golden
+
+    pairs = sizes[-1]
+    kernel_ms = cuda_ms(lambda: pc.compress_level_cuda(level), 20)
+    plain_ms = cuda_ms(lambda: pc.compress_level_plain(level), 2)
+    rate = _int_mul_rate()
+    ops_ms = pairs * MULS_PER_PAIR * INT32_MULS_PER_MUL / rate * 1e3
+    bytes_ms = pairs * BYTES_PER_PAIR / HBM_BYTES_PER_S * 1e3
+    ok = mismatches == 0 and golden_ok
+    result = {
+        "phase": "kernels", "ok": ok, "mismatches": mismatches, "per_size": per_size,
+        "golden_root_ok": golden_ok, "pairs": pairs, "kernel_ms": kernel_ms,
+        "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+        "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
+        "int32_mul_rate_per_s": rate, "max_abs_err": max_err,
+    }
+    emit(result)
+    if not ok:
+        raise AssertionError("kernel disagrees with its plain version")
+    return result
+
+
+def build_chain(dims, seed):
+    """bench.py's Dense-4M draw order: per layer matrix then bias, x last."""
+    from deepprove_tpu_torch.zkml import quantization as Q
+
+    rng = np.random.default_rng(seed)
+    layers = []
+    for i in range(len(dims) - 1):
+        w = rng.integers(Q.MIN, Q.MAX + 1, size=(dims[i + 1], dims[i])).astype(np.int64)
+        b = rng.integers(Q.MIN, Q.MAX + 1, size=dims[i + 1]).astype(np.int64)
+        layers.append((w, b))
+    return layers, rng.integers(Q.MIN, Q.MAX + 1, size=dims[0]).astype(np.int64)
+
+
+def count_field_elements(obj) -> int:
+    """Field elements in a materialized proof (an ext element counts 2;
+    query indices are not field elements)."""
+    import dataclasses
+
+    if dataclasses.is_dataclass(obj):
+        return sum(
+            count_field_elements(getattr(obj, f.name))
+            for f in dataclasses.fields(obj)
+            if f.name != "query_indices"
+        )
+    if isinstance(obj, dict):
+        return sum(count_field_elements(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(count_field_elements(v) for v in obj)
+    if isinstance(obj, np.ndarray):
+        return int(obj.size)
+    return 1 if isinstance(obj, int) else 0
+
+
+def phase_slice():
+    from deepprove_tpu_torch.fields import gf
+    from deepprove_tpu_torch.hashing import poseidon2_cuda as pc
+    from deepprove_tpu_torch.transcript import BasicTranscript
+    from deepprove_tpu_torch.transcript.session import DeviceTranscript
+    from deepprove_tpu_torch.zkml.convert import dense_chain_from_arrays
+    from deepprove_tpu_torch.zkml.iop import IO, Context, Prover, verify
+    from deepprove_tpu_torch.zkml.tensor import Tensor
+
+    dims = [4, 1024, 1024, 3]
+    pcs_kw = dict(num_queries=200, basecode_msg_size_log=7)
+    layers, x_np = build_chain(dims, 0)
+    model = dense_chain_from_arrays(layers, "cuda")
+    x = Tensor(torch.from_numpy(x_np))
+
+    # the main path, once, with the launch count set to 0 just before it
+    pc.LAUNCHES = 0
+    run_ms, trace = wall_ms(lambda: model.run([x], "cuda"))
+    want = x_np
+    for w, b in layers:
+        want = w @ want + b
+    assert np.array_equal(trace.outputs[0].data.cpu().numpy()[: dims[-1]], want)
+    cold_setup_ms, ctx = wall_ms(lambda: Context.generate(model, device="cuda", **pcs_kw))
+    launches_setup = pc.LAUNCHES
+    prover = Prover(ctx, BasicTranscript(b"m2vec"), device="cuda")
+    cold_prove_ms, proof = wall_ms(lambda: prover.prove(trace))
+    launches_prove = pc.LAUNCHES - launches_setup
+    cold_verify_ms, _ = wall_ms(
+        lambda: verify(ctx, proof, IO([x], trace.outputs), BasicTranscript(b"m2vec"), device="cuda")
+    )
+    launches = pc.LAUNCHES
+    launches_verify = launches - launches_setup - launches_prove
+    if launches_prove == 0:
+        raise AssertionError("the prove launched the compression kernel no time")
+
+    bad = trace.outputs[0].data.clone()
+    bad[0] += 1
+    try:
+        verify(ctx, proof, IO([x], [Tensor(bad)]), BasicTranscript(b"m2vec"), device="cuda")
+    except AssertionError:
+        pass  # the expected rejection
+    else:
+        raise AssertionError("verify accepted a changed output")
+
+    warm = {"setup_ms": [], "prove_ms": [], "verify_ms": []}
+    for _ in range(WARM_RUNS):
+        ms, ctx = wall_ms(lambda: Context.generate(model, device="cuda", **pcs_kw))
+        warm["setup_ms"].append(ms)
+        prover = Prover(ctx, BasicTranscript(b"m2vec"), device="cuda")
+        ms, proof = wall_ms(lambda: prover.prove(trace))
+        warm["prove_ms"].append(ms)
+        ms, _ = wall_ms(
+            lambda: verify(ctx, proof, IO([x], trace.outputs), BasicTranscript(b"m2vec"), device="cuda")
+        )
+        warm["verify_ms"].append(ms)
+
+    # what holding the sponge on the host costs: per-copy times on an idle
+    # card, times the copies one prove made
+    dt = DeviceTranscript.from_host(BasicTranscript(b"probe"), "cuda")
+    msg = gf.ext_from_pairs([(1, 2), (3, 4), (5, 6)], "cuda")
+    pull_ms, _ = wall_ms(lambda: [dt.append_exts(msg) for _ in range(200)])
+    push_ms, _ = wall_ms(lambda: [dt.read_challenge() for _ in range(200)])
+    pull_ms, push_ms = pull_ms / 200, push_ms / 200
+    result = {
+        "phase": "slice", "ok": True, "dims": dims, **pcs_kw,
+        "inference_ms": run_ms,
+        **{k: float(np.median(v)) for k, v in warm.items()},
+        "warm_runs": warm, "cold_setup_ms": cold_setup_ms,
+        "cold_prove_ms": cold_prove_ms, "cold_verify_ms": cold_verify_ms,
+        "proof_field_elements": count_field_elements(proof), "launches": launches,
+        "launches_setup": launches_setup, "launches_prove": launches_prove,
+        "launches_verify": launches_verify, "tampered_output_rejected": True,
+        "transcript_pulls": prover.dt.pulls, "transcript_pushes": prover.dt.pushes,
+        "pull_ms": pull_ms, "push_ms": push_ms,
+        "transcript_copy_ms": prover.dt.pulls * pull_ms + prover.dt.pushes * push_ms,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    emit(result)
+    return result
+
+
+def phase_reference():
+    import torch_reference as R
+
+    from deepprove_tpu_torch.transcript import BasicTranscript
+    from deepprove_tpu_torch.zkml.convert import dense_chain_from_arrays
+    from deepprove_tpu_torch.zkml.iop import IO, Context, Prover, verify
+    from deepprove_tpu_torch.zkml.tensor import Tensor
+
+    ref = R.load()["dense"]
+    layers, x_np = R.dense_inputs()
+    model = dense_chain_from_arrays(layers, "cuda")
+    x = Tensor(torch.from_numpy(x_np))
+    trace = model.run([x], "cuda")
+    ctx = Context.generate(model, device="cuda", **R.DENSE_KW)
+    proof = Prover(ctx, BasicTranscript(b"m2vec"), device="cuda").prove(trace)
+    verify(ctx, proof, IO([x], trace.outputs), BasicTranscript(b"m2vec"), device="cuda")
+    same = R.plain({"steps": proof.steps, "commit": proof.commit}) == ref["proof"]
+    emit({"phase": "reference", "ok": same, "dims": R.DENSE_DIMS, "equal_to_jax_proof": same})
+    if not same:
+        raise AssertionError("the card's proof differs from the JAX package's")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    card = phase_build()
+    k = phase_kernels()
+    s = phase_slice()
+    phase_reference()
+    emit({"kernels": [{
+        "name": "poseidon2_compress_level",
+        "route": "cuda",
+        "source": "deepprove_tpu_torch/csrc/poseidon2_compress.cu",
+        "replaces": "deepprove_tpu/hashing/poseidon2_pallas.py:142",
+        "launches": s["launches"],
+        "max_abs_err": k["max_abs_err"],
+        "ms": k["kernel_ms"],
+        "plain_ms": k["plain_ms"],
+        "bound_ms": k["bound_ms"],
+        "bound_by": "operations" if k["bound_ops_ms"] >= k["bound_bytes_ms"] else "bytes",
+        "library_ms": None,
+    }]})
+    print(card, flush=True)
+    emit({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    })
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

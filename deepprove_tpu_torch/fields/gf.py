@@ -1,0 +1,291 @@
+"""Goldilocks field arithmetic on torch tensors.
+
+p = 2^64 - 2^32 + 1 and its degree-2 binomial extension X^2 = 7, as in the
+JAX package's `fields/gf.py`. torch has no usable unsigned 64-bit
+arithmetic, so a base-field array is an `int64` tensor holding the u64 bit
+pattern of each canonical element (< p):
+
+  * `+`, `-` and `*` wrap mod 2^64, which is what the u64 formulas need;
+  * a logical right shift is `(x >> k) & mask`;
+  * an unsigned compare flips the sign bit of both sides first.
+
+Multiplication splits both operands into 32-bit halves, forms the exact
+128-bit product from four 32x32 partial products, and reduces it with the
+classic reduce128 (2^64 = 2^32 - 1, 2^96 = -1 mod p) -- the native-u64 path
+of the JAX package (`gf.py:_mul_u64`). Every op returns canonical values, so
+equality of field arrays is equality of tensors.
+
+An extension array is a `GF2` pair of equal-shape base tensors (a0, a1),
+meaning a0 + a1*X.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+P = (1 << 64) - (1 << 32) + 1
+EPSILON = (1 << 32) - 1  # 2^64 mod p
+EXT_W = 7
+
+_M32 = 0xFFFFFFFF
+_SIGN = -(1 << 63)
+
+
+def as_i64(v: int) -> int:
+    """A u64 python int as the int64 value with the same bit pattern."""
+    v %= 1 << 64
+    return v - (1 << 64) if v >= 1 << 63 else v
+
+
+P_I64 = as_i64(P)
+_P_FLIPPED = as_i64(P) ^ _SIGN  # p with its sign bit flipped, for x >= p
+
+
+def _shr(x, k: int):
+    """Logical right shift of u64 bit patterns held in int64."""
+    return (x >> k) & ((1 << (64 - k)) - 1)
+
+
+def _flip(x):
+    return x ^ _SIGN
+
+
+def _ult(a, b):
+    """Unsigned a < b on u64 bit patterns."""
+    return _flip(a) < _flip(b)
+
+
+def _canon_once(x):
+    """x - p where x >= p (unsigned), for x < 2p."""
+    return torch.where(_flip(x) >= _P_FLIPPED, x - P_I64, x)
+
+
+# ---------------------------------------------------------------------------
+# base field
+# ---------------------------------------------------------------------------
+
+
+def add(a, b):
+    """a + b mod p; `b` may be a tensor or a canonical python int."""
+    if isinstance(b, int):
+        b, pmb = as_i64(b), as_i64(P - b)
+    else:
+        pmb = P_I64 - b  # p - b, in [1, p]
+    return torch.where(_ult(a, pmb), a + b, a - pmb)
+
+
+def sub(a, b):
+    d = a - b
+    return torch.where(_ult(a, b), d + P_I64, d)
+
+
+def neg(a):
+    return torch.where(a == 0, a, P_I64 - a)
+
+
+def _split(x):
+    if isinstance(x, int):
+        return x & _M32, x >> 32
+    return x & _M32, _shr(x, 32)
+
+
+def _reduce128(lo, hi):
+    hi_hi = _shr(hi, 32)
+    hi_lo = hi & _M32
+    t0 = lo - hi_hi
+    t0 = torch.where(_ult(lo, hi_hi), t0 - EPSILON, t0)
+    t1 = (hi_lo << 32) - hi_lo  # hi_lo * EPSILON, exact
+    t2 = t0 + t1
+    t2 = torch.where(_ult(t2, t1), t2 + EPSILON, t2)
+    return _canon_once(t2)
+
+
+def mul(a, b):
+    """a * b mod p; `b` may be a tensor or a canonical python int."""
+    a_lo, a_hi = _split(a)
+    b_lo, b_hi = _split(b)
+    ll = a_lo * b_lo
+    lh = a_lo * b_hi
+    hl = a_hi * b_lo
+    hh = a_hi * b_hi
+    t = _shr(ll, 32) + (lh & _M32) + (hl & _M32)  # < 3 * 2^32
+    lo = (ll & _M32) | (t << 32)
+    hi = hh + _shr(lh, 32) + _shr(hl, 32) + (t >> 32)
+    return _reduce128(lo, hi)
+
+
+def square(a):
+    return mul(a, a)
+
+
+def pow_const(a, e: int):
+    """a ** e for a python-int exponent (square-and-multiply)."""
+    assert e >= 0
+    if e == 0:
+        return torch.ones_like(a)
+    result = None
+    base = a
+    while e:
+        if e & 1:
+            result = base if result is None else mul(result, base)
+        e >>= 1
+        if e:
+            base = square(base)
+    return result
+
+
+def inv(a):
+    """Field inverse by Fermat; inv(0) = 0."""
+    return pow_const(a, P - 2)
+
+
+def sum_axis(a, dim: int = -1):
+    """Modular sum along `dim`.
+
+    Field addition is exact, so any order gives the same canonical sum:
+    the 32-bit halves are summed as plain int64 (exact below 2^31 terms)
+    and recombined as hi * 2^32 + lo mod p.
+    """
+    assert a.shape[dim] < (1 << 31)
+    lo = (a & _M32).sum(dim)
+    hi = _shr(a, 32).sum(dim)
+    return add(mul(hi, 1 << 32), lo)  # lo, hi < 2^63 < p: already canonical
+
+
+def from_u64(arr, device="cpu") -> torch.Tensor:
+    """numpy uint64 (or python ints) -> canonical int64-pattern tensor."""
+    a = np.asarray(arr, dtype=np.uint64)
+    a = np.where(a >= np.uint64(P), a - np.uint64(P), a)
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int64)).to(device)
+
+
+def to_u64(a: torch.Tensor) -> np.ndarray:
+    return a.detach().cpu().numpy().view(np.uint64)
+
+
+def full(shape, value: int, device) -> torch.Tensor:
+    return torch.full(shape, as_i64(value % P), dtype=torch.int64, device=device)
+
+
+def zeros(shape, device) -> torch.Tensor:
+    return torch.zeros(shape, dtype=torch.int64, device=device)
+
+
+# ---------------------------------------------------------------------------
+# extension field GF(p^2) = F_p[X]/(X^2 - 7)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class GF2:
+    """Array of GoldilocksExt2 elements a0 + a1*X, X^2 = 7."""
+
+    a0: torch.Tensor
+    a1: torch.Tensor
+
+    @property
+    def shape(self):
+        return tuple(self.a0.shape)
+
+    @property
+    def ndim(self):
+        return self.a0.ndim
+
+    @property
+    def device(self):
+        return self.a0.device
+
+    def __len__(self):
+        return self.a0.shape[0]
+
+    def __getitem__(self, idx):
+        return GF2(self.a0[idx], self.a1[idx])
+
+    def reshape(self, *shape):
+        return GF2(self.a0.reshape(*shape), self.a1.reshape(*shape))
+
+
+def ext_add(a: GF2, b: GF2) -> GF2:
+    return GF2(add(a.a0, b.a0), add(a.a1, b.a1))
+
+
+def ext_sub(a: GF2, b: GF2) -> GF2:
+    return GF2(sub(a.a0, b.a0), sub(a.a1, b.a1))
+
+
+def ext_mul(a: GF2, b: GF2) -> GF2:
+    """Karatsuba: 3 base muls + the binomial fold by W = 7."""
+    t0 = mul(a.a0, b.a0)
+    t1 = mul(a.a1, b.a1)
+    t2 = mul(add(a.a0, a.a1), add(b.a0, b.a1))
+    return GF2(add(t0, mul(t1, EXT_W)), sub(t2, add(t0, t1)))
+
+
+def ext_mul_base(a: GF2, b) -> GF2:
+    return GF2(mul(a.a0, b), mul(a.a1, b))
+
+
+def ext_from_base(a: torch.Tensor) -> GF2:
+    return GF2(a, torch.zeros_like(a))
+
+
+def to_ext(values) -> GF2:
+    return values if isinstance(values, GF2) else ext_from_base(values)
+
+
+def ext_zeros(shape, device) -> GF2:
+    return GF2(zeros(shape, device), zeros(shape, device))
+
+
+def ext_ones(shape, device) -> GF2:
+    return GF2(full(shape, 1, device), zeros(shape, device))
+
+
+def ext_inv(a: GF2) -> GF2:
+    """(a0 + a1 X)^-1 = (a0 - a1 X) / (a0^2 - 7 a1^2)."""
+    norm = sub(square(a.a0), mul(square(a.a1), EXT_W))
+    ninv = inv(norm)
+    return GF2(mul(a.a0, ninv), mul(neg(a.a1), ninv))
+
+
+def ext_concatenate(parts, dim: int = 0) -> GF2:
+    return GF2(
+        torch.cat([p.a0 for p in parts], dim), torch.cat([p.a1 for p in parts], dim)
+    )
+
+
+def ext_stack(parts, dim: int = 0) -> GF2:
+    return GF2(
+        torch.stack([p.a0 for p in parts], dim),
+        torch.stack([p.a1 for p in parts], dim),
+    )
+
+
+def ext_sum_axis(a: GF2, dim: int = -1) -> GF2:
+    return GF2(sum_axis(a.a0, dim), sum_axis(a.a1, dim))
+
+
+def ext_from_pairs(pairs, device) -> GF2:
+    """Host ext pairs [(a0, a1), ...] -> GF2 (k,) on `device`."""
+    a0 = np.asarray([int(p[0]) % P for p in pairs], dtype=np.uint64)
+    a1 = np.asarray([int(p[1]) % P for p in pairs], dtype=np.uint64)
+    return GF2(from_u64(a0, device), from_u64(a1, device))
+
+
+def ext_scalar(pair, device) -> GF2:
+    """Host ext pair -> GF2 () on `device`."""
+    return ext_from_pairs([pair], device).reshape(())
+
+
+def ext_to_u64(a: GF2):
+    packed = to_u64(torch.stack([a.a0.reshape(-1), a.a1.reshape(-1)]))
+    return packed[0].reshape(a.shape), packed[1].reshape(a.shape)
+
+
+def ext_to_pairs(a: GF2) -> list:
+    """GF2 (k,) -> host [(a0, a1), ...] (one pull)."""
+    a0, a1 = ext_to_u64(a.reshape(-1))
+    return list(zip(a0.tolist(), a1.tolist()))

@@ -1,0 +1,119 @@
+"""Merkle-level Poseidon2 compression: the hand-written CUDA kernel and its
+plain torch version.
+
+`compress_level` maps a plane-major (4, 2M) int64 digest level (even
+columns = left children, odd = right) to its (4, M) parents. On a CUDA
+tensor it launches `csrc/poseidon2_compress.cu` (the port of the TPU
+kernel `_compress_kernel` in the JAX package's `poseidon2_pallas.py`) and
+raises if the kernel cannot run; on a CPU tensor it computes
+`compress_level_plain`, the same function in plain torch. No single
+PyTorch call computes Poseidon2.
+
+The kernel library is built with nvcc for sm_90a at first use into the
+package's build directory and bound with ctypes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+
+import torch
+
+from .. import native
+from . import poseidon2
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
+SOURCE = os.path.join(CSRC, "poseidon2_compress.cu")
+
+# Launches of the CUDA kernel since the last reset (plain int; callers reset).
+LAUNCHES = 0
+
+_LIB = None
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found; the CUDA kernel cannot be built")
+    return path
+
+
+def nvcc_command(include_dir: str, out_path: str) -> list[str]:
+    return [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        "-shared", "-Xcompiler", "-fPIC", "-I", include_dir, "-I", CSRC,
+        "-o", out_path, SOURCE,
+    ]
+
+
+def build() -> str:
+    """Build (or find) the kernel library; returns the .so path."""
+    return native.build_shared_lib(
+        "poseidon2_cuda", [SOURCE, os.path.join(CSRC, "goldilocks.cuh")], nvcc_command
+    )
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(build())
+        lib.dp_poseidon2_compress_level.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+        ]
+        lib.dp_poseidon2_compress_level.restype = ctypes.c_int
+        lib.dp_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.dp_cuda_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def _check_level(digests: torch.Tensor) -> int:
+    if digests.dtype != torch.int64:
+        raise TypeError(f"digest level must be int64, got {digests.dtype}")
+    if digests.dim() != 2 or digests.shape[0] != 4:
+        raise ValueError(f"digest level must be (4, 2M), got {tuple(digests.shape)}")
+    n = digests.shape[1]
+    if n == 0 or n % 2:
+        raise ValueError(f"digest level width must be even and > 0, got {n}")
+    return n // 2
+
+
+def compress_level_plain(digests: torch.Tensor) -> torch.Tensor:
+    """(4, 2M) -> (4, M) parents in plain torch (any device)."""
+    _check_level(digests)
+    left = [digests[e, 0::2] for e in range(4)]
+    right = [digests[e, 1::2] for e in range(4)]
+    return torch.stack(poseidon2.compress_planes(left, right))
+
+
+def compress_level_cuda(digests: torch.Tensor) -> torch.Tensor:
+    """(4, 2M) -> (4, M) parents by the CUDA kernel (CUDA tensors only)."""
+    global LAUNCHES
+    m = _check_level(digests)
+    if digests.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel takes a CUDA tensor, got {digests.device}")
+    if not digests.is_contiguous():
+        raise ValueError("digest level must be contiguous")
+    out = torch.empty((4, m), dtype=torch.int64, device=digests.device)
+    lib = _lib()
+    with torch.cuda.device(digests.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.dp_poseidon2_compress_level(
+            digests.data_ptr(), out.data_ptr(), m, stream
+        )
+    if err != 0:
+        raise RuntimeError(
+            "poseidon2 compress kernel launch failed: "
+            + lib.dp_cuda_error_string(err).decode()
+        )
+    LAUNCHES += 1
+    return out
+
+
+def compress_level(digests: torch.Tensor) -> torch.Tensor:
+    """(4, 2M) -> (4, M): the kernel on a CUDA tensor, plain torch on the CPU."""
+    if digests.device.type == "cpu":
+        return compress_level_plain(digests)
+    return compress_level_cuda(digests)

@@ -1,0 +1,89 @@
+"""The port stands alone: `deepprove_tpu_torch` and `chip_smoke.py` import
+neither jax nor the JAX package, and the entry points run on the card
+unless the caller asks for the CPU."""
+
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "deepprove_tpu_torch")
+
+_IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|deepprove_tpu)(?:[.\s]|$)", re.M)
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import deepprove_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'deepprove_tpu' or m.startswith('deepprove_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print(len([m for m in sys.modules if m.startswith('deepprove_tpu_torch')]))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) > 20
+
+
+def test_sources_do_not_import_jax_or_the_jax_package():
+    # chip_smoke.py also imports tests/torch_reference.py (the frozen JAX proofs)
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tests", "torch_reference.py")]
+    for d, _, names in os.walk(PKG):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    offenders = [f for f in files if _IMPORT.search(open(f).read())]
+    assert not offenders
+
+
+def _entry_points():
+    from deepprove_tpu_torch.transcript import BasicTranscript
+    from deepprove_tpu_torch.zkml.convert import dense_chain_from_arrays
+    from deepprove_tpu_torch.zkml.iop import IO, Context, Prover, verify
+    from deepprove_tpu_torch.zkml.tensor import Tensor
+
+    layers = [(np.ones((2, 2), dtype=np.int64), np.zeros(2, dtype=np.int64))]
+    model = dense_chain_from_arrays(layers, device="cpu")
+    ctx = Context.generate(model, device="cpu", num_queries=2, basecode_msg_size_log=1)
+    x = Tensor(torch.ones(2, dtype=torch.int64))
+    return {
+        "convert": lambda: dense_chain_from_arrays(layers),
+        "Model.run": lambda: model.run([x]),
+        "Context.generate": lambda: Context.generate(model),
+        "Prover": lambda: Prover(ctx, BasicTranscript(b"m2vec")),
+        "verify": lambda: verify(ctx, None, IO([x], [x]), BasicTranscript(b"m2vec")),
+    }
+
+
+@pytest.mark.parametrize(
+    "name", ["convert", "Model.run", "Context.generate", "Prover", "verify"]
+)
+def test_entry_point_without_a_card_raises(monkeypatch, name):
+    call = _entry_points()[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+
+
+def test_chip_smoke_without_a_card_exits_nonzero_and_prints_no_result():
+    code = (
+        "import torch, runpy, sys\n"
+        "torch.cuda.is_available = lambda: False\n"
+        "sys.argv = ['chip_smoke.py']\n"
+        "runpy.run_path('chip_smoke.py', run_name='__main__')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout

@@ -1,0 +1,79 @@
+"""The port's Poseidon2 (plain torch `permute_planes`, the level
+compression wrapper, the native host permutation) against the JAX package's `permute_host`, `compress_host` and
+`merkle._compress_level_scan`, and the golden vectors. Exact."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from deepprove_tpu.fields import gf as jgf
+from deepprove_tpu.hashing import poseidon2 as jp2
+from deepprove_tpu.pcs import merkle as jmerkle
+from deepprove_tpu_torch.fields import gf
+from deepprove_tpu_torch.hashing import poseidon2, poseidon2_cuda
+from deepprove_tpu_torch.pcs.merkle import MerkleTree
+
+P = gf.P
+VECS = json.load(open(os.path.join(os.path.dirname(__file__), "golden_vectors.json")))
+
+
+def _rand(seed, shape):
+    return np.random.default_rng(seed).integers(0, P, size=shape, dtype=np.uint64)
+
+
+def test_permute_planes_matches_permute_host():
+    states = _rand(11, (64, 8))
+    got = poseidon2.permute_planes([gf.from_u64(states[:, i]) for i in range(8)])
+    got = np.stack([gf.to_u64(p) for p in got], axis=-1)
+    np.testing.assert_array_equal(got, jp2.permute_host(states))
+
+
+def test_native_host_permutation_matches_jax_host():
+    states = _rand(12, (16, 8))
+    np.testing.assert_array_equal(poseidon2.permute_host(states), jp2.permute_host(states))
+    l, r = _rand(13, (16, 4)), _rand(14, (16, 4))
+    np.testing.assert_array_equal(poseidon2.compress_host(l, r), jp2.compress_host(l, r))
+
+
+def test_compress_level_plain_matches_compress_host():
+    level = _rand(15, (4, 2 * 64))
+    got = gf.to_u64(poseidon2_cuda.compress_level_plain(gf.from_u64(level)))
+    want = jp2.compress_host(level[:, 0::2].T, level[:, 1::2].T).T
+    np.testing.assert_array_equal(got, want)
+
+
+def test_compress_level_matches_jax_scan():
+    level = _rand(16, (4, 2 * 64))
+    got = gf.to_u64(poseidon2_cuda.compress_level(gf.from_u64(level)))
+    want = jgf.to_u64(jmerkle._compress_level_scan(jgf.from_u64(level)))
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_plain_and_compress_host(cuda_device):
+    level = _rand(17, (4, 2 * 64))
+    got = poseidon2_cuda.compress_level(gf.from_u64(level, cuda_device))
+    assert torch.equal(got.cpu(), poseidon2_cuda.compress_level_plain(gf.from_u64(level)))
+    want = jp2.compress_host(level[:, 0::2].T, level[:, 1::2].T).T
+    np.testing.assert_array_equal(gf.to_u64(got), want)
+
+
+def test_permutation_golden():
+    planes = poseidon2.permute_planes([gf.from_u64(np.array([i], dtype=np.uint64)) for i in range(8)])
+    assert [int(gf.to_u64(p)[0]) for p in planes] == VECS["poseidon2_perm_0to7"]
+    assert poseidon2.permute_host(np.arange(8, dtype=np.uint64)).tolist() == VECS["poseidon2_perm_0to7"]
+
+
+def test_merkle_root_golden():
+    tree = MerkleTree.from_leaves(gf.from_u64(np.arange(16, dtype=np.uint64)))
+    assert list(tree.root) == VECS["merkle_root_0to15"]
