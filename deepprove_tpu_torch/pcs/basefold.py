@@ -29,11 +29,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import device as device_mod
 from .. import glue
 from ..fields import gf, host
 from ..fields.gf import GF2
 from ..hashing import poseidon2
-from ..hashing.poseidon2_cuda import compress_level_cuda
+from ..hashing.poseidon2_cuda import compress_level
 from ..poly import mle as mle_mod
 from . import ntt
 from .merkle import MerkleTree
@@ -431,11 +432,11 @@ def _trivial_root_host(evals) -> Digest:
 
 class PathJobs:
     """Deferred Merkle path checks, walked in ONE per-level batched pass over
-    every tree of a verification: on a CUDA device through the compression
-    kernel, on the CPU through the native host permutation."""
+    every tree of a verification through `compress_level` (the kernel on a
+    CUDA device, its plain version on the CPU)."""
 
     def __init__(self, device):
-        self.device = torch.device(device)
+        self.device = device_mod.resolve(device)
         self.jobs = []
 
     def add(self, leaf_digests, idxs, paths, root, label: str):
@@ -465,18 +466,7 @@ class PathJobs:
             k = j[0].shape[0]
             paths[off : off + k, : j[2].shape[1]] = j[2]
             off += k
-        if self.device.type == "cuda":
-            d = self._walk_device(d, paths, ii, depths, max_d)
-        else:
-            for lvl in range(max_d):
-                act = depths > lvl
-                sib = paths[act, lvl, :]
-                da = d[act]
-                odd = (ii[act] & 1).astype(bool)[:, None]
-                d[act] = poseidon2.compress_host(
-                    np.where(odd, sib, da), np.where(odd, da, sib)
-                )
-                ii[act] = ii[act] >> 1
+        d = self._walk(d, paths, ii, depths, max_d)
         off = 0
         for ld, _, _, root, label in self.jobs:
             k = ld.shape[0]
@@ -484,7 +474,7 @@ class PathJobs:
             off += k
         self.jobs = []
 
-    def _walk_device(self, d, paths, ii, depths, max_d) -> np.ndarray:
+    def _walk(self, d, paths, ii, depths, max_d) -> np.ndarray:
         """All rows per level at once; rows past their depth carry through."""
         dev = self.device
         d_t = gf.from_u64(d, dev).T  # (4, N)
@@ -497,7 +487,7 @@ class PathJobs:
             left = torch.where(odd, sib, d_t)
             right = torch.where(odd, d_t, sib)
             pairs = torch.stack([left, right], dim=2).reshape(4, -1)
-            parent = compress_level_cuda(pairs)
+            parent = compress_level(pairs)
             d_t = torch.where(depths_t > lvl, parent, d_t)
             ii_t = ii_t >> 1
         return gf.to_u64(d_t.T.contiguous()).copy()
@@ -574,8 +564,9 @@ def _check_final(params, proof, fold_challenges, point, num_vars):
     )
 
 
-def verify(params, commitment, point: list[ExtPair], eval_: ExtPair, proof, transcript, device="cpu"):
-    """Single-poly verification; raises AssertionError on a bad proof."""
+def verify(params, commitment, point: list[ExtPair], eval_: ExtPair, proof, transcript, device="cuda"):
+    """Single-poly verification; raises AssertionError on a bad proof. The
+    Merkle paths are walked on `device`."""
     if proof.is_trivial:
         evals = np.asarray(proof.trivial_evals[0], dtype=np.uint64)
         assert _trivial_root_host(evals) == tuple(commitment.root), "trivial root mismatch"
@@ -730,8 +721,9 @@ def _eq_eval(x: GF2, y: GF2) -> GF2:
     return acc
 
 
-def batch_verify(params, commitments, points, evals, proof, transcript, device="cpu"):
-    """Batched verification; raises AssertionError on a bad proof."""
+def batch_verify(params, commitments, points, evals, proof, transcript, device="cuda"):
+    """Batched verification; raises AssertionError on a bad proof. The
+    Merkle paths are walked on `device`."""
     from ..sumcheck.verifier import verify as sumcheck_verify
 
     num_vars = max(len(p) for p in points)

@@ -1,7 +1,8 @@
 """The port's NTT and Basefold PCS against naive transforms and the JAX
 package's commit/open at 2^6 evals (RS path) and 2^2 evals (trivial
 commitment), num_queries=11, basecode 2^2, frozen in torch_reference.json
-(see make_torch_reference.py). Exact."""
+(made and checked against the JAX package by make_torch_reference.py and
+test_torch_reference.py). Exact."""
 
 import copy
 
@@ -70,7 +71,7 @@ def test_verify_accepts(opened):
     _, (params, comm, proof, evals, pt) = opened
     basefold.verify(
         params, comm.commitment, pt, host.mle_eval_v(evals, pt), proof,
-        BasicTranscript(R.BASEFOLD_LABEL),
+        BasicTranscript(R.BASEFOLD_LABEL), device="cpu",
     )
 
 
@@ -90,7 +91,7 @@ def test_verify_rejects_a_flipped_element(opened):
     with pytest.raises(AssertionError):
         basefold.verify(
             params, comm.commitment, pt, host.mle_eval_v(evals, pt), _flip(proof, name),
-            BasicTranscript(R.BASEFOLD_LABEL),
+            BasicTranscript(R.BASEFOLD_LABEL), device="cpu",
         )
 
 
@@ -113,8 +114,8 @@ def test_batch_open_roundtrip_and_rejection():
         params, [gf.from_u64(e) for e in evals], comms, pts, batch, BasicTranscript(b"bo")
     )
     cms = [c.commitment for c in comms]
-    basefold.batch_verify(params, cms, pts, batch, proof, BasicTranscript(b"bo"))
+    basefold.batch_verify(params, cms, pts, batch, proof, BasicTranscript(b"bo"), device="cpu")
     bad = copy.deepcopy(batch)
     bad[2].value = ((bad[2].value[0] + 1) % P, bad[2].value[1])
     with pytest.raises(AssertionError):
-        basefold.batch_verify(params, cms, pts, bad, proof, BasicTranscript(b"bo"))
+        basefold.batch_verify(params, cms, pts, bad, proof, BasicTranscript(b"bo"), device="cpu")

@@ -2,7 +2,8 @@
 built once with numpy (torch_reference.dense_inputs) is proved by the port
 through `convert.dense_chain_from_arrays`; the proof must be field-for-field
 equal to the JAX package's proof of the same model, frozen in
-torch_reference.json. The port's verifier accepts it and rejects a
+torch_reference.json (checked against the JAX package by
+test_torch_reference.py). The port's verifier accepts it and rejects a
 tampered output or proof."""
 
 import copy

@@ -1,0 +1,40 @@
+"""The frozen JAX outputs in torch_reference.json against the JAX package
+itself: each part is recomputed by `make_torch_reference` from the same
+seeded inputs and must equal the file. About 7 minutes on a CPU in all, so
+the tests run only when selected:
+
+    JAX_PLATFORMS=cpu python -m pytest tests/test_torch_reference.py -m jax_reference
+"""
+
+import json
+
+import pytest
+
+import torch_reference as R
+
+pytestmark = pytest.mark.jax_reference
+
+
+def _recompute(part):
+    import make_torch_reference as M
+
+    if part == "sumcheck":
+        return M.sumcheck_reference()
+    if part == "dense":
+        return M.dense_reference()
+    return M.basefold_reference(part.split("_")[1])
+
+
+def _frozen(part):
+    ref = R.load()
+    if part.startswith("basefold_"):
+        return ref["basefold"][part.split("_")[1]]
+    return ref[part]
+
+
+@pytest.mark.parametrize("part", ["sumcheck", "basefold_rs", "basefold_trivial", "dense"])
+def test_frozen_reference_equals_jax_package(request, part):
+    if "jax_reference" not in (request.config.option.markexpr or ""):
+        pytest.skip("recomputes the JAX package's proofs (minutes); select with -m jax_reference")
+    # through JSON, as the file was written: tuples become lists
+    assert json.loads(json.dumps(_recompute(part))) == _frozen(part)

@@ -1,6 +1,6 @@
 """The port's transcript, MLE and sumcheck against the golden vectors and
-the JAX package's sumcheck proof on the same VirtualPolynomial (frozen in
-torch_reference.json, see make_torch_reference.py). Exact."""
+the JAX package's sumcheck proof on the same VirtualPolynomial, computed
+live by `make_torch_reference.sumcheck_reference`. Exact."""
 
 import json
 import os
@@ -8,6 +8,7 @@ import os
 import numpy as np
 import pytest
 
+import make_torch_reference as M
 import torch_reference as R
 from deepprove_tpu_torch import glue
 from deepprove_tpu_torch.fields import gf, host
@@ -73,7 +74,7 @@ def _reference_vp():
 def test_sumcheck_matches_jax_prover():
     vp, _ = _reference_vp()
     o = prove(vp, BasicTranscript(R.SUMCHECK_LABEL))
-    assert R.plain({"proof": o.proof, "final_evals": o.final_evals}) == R.load()["sumcheck"]
+    assert R.plain({"proof": o.proof, "final_evals": o.final_evals}) == M.sumcheck_reference()
 
 
 def _claimed_sum(a, b, c0, c1):

@@ -4,7 +4,9 @@ Proving with the JAX package on the CPU takes minutes per call, far beyond
 what the `tests/test_torch_*` files may spend, so `make_torch_reference.py`
 proves once with the JAX package on the seeded numpy inputs below and
 stores the results in `torch_reference.json`; the tests and `chip_smoke.py`
-compare the port's outputs with them field for field. This module imports
+compare the port's outputs with them field for field, and
+`test_torch_reference.py` (`-m jax_reference`) recomputes them with the
+JAX package and checks the file is unchanged. This module imports
 neither jax nor the JAX package, so `chip_smoke.py` can use it on a machine
 without JAX.
 
