@@ -1,16 +1,27 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (`deepprove_tpu_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--against OTHER.cu]
 
 Phases, each printing one JSON line:
   1. build   - nvcc builds the Poseidon2 Merkle-compression kernel for
                sm_90a from `deepprove_tpu_torch/csrc`, timed; the card's
-               name and power limit as nvidia-smi reports them.
-  2. kernels - the kernel against its plain torch version on random levels
-               (bit-identical at every size, ragged ones included), the
-               golden Merkle root, and kernel / plain times at 2^19 pairs
-               beside the least time the card could take.
+               name and power limit as nvidia-smi reports them; the
+               kernel's SASS length, registers, local (spill) memory,
+               block size and resident warps an SM.
+  2. kernels - the kernel against its plain torch version (bit-identical)
+               on random levels at sizes on both sides of the block and
+               warp boundaries and on levels of the edge values
+               {0, 1, 2^32 - 1, 2^32, 2^63, p - 2, p - 1}; the library's
+               field arithmetic on operands in [p, 2^64) against Python
+               ints; the golden Merkle root; kernel / plain times at 2^19
+               pairs beside the least time the card could take.
+     against - only with --against: another source of the same entry
+               point (an earlier version of the kernel) built the same
+               way, checked equal and timed at 2^19 pairs in turns with
+               this one (other, this, this, other), with its SASS length,
+               registers and resident warps (from its registers, at this
+               kernel's block size).
   3. slice   - the Dense chain [4, 1024, 1024, 3] at the reference's
                parameters (200 queries, rate 1/2, basecode 2^7):
                Model.run -> Context.generate -> Prover.prove -> verify on
@@ -25,8 +36,11 @@ and exits non-zero; without a CUDA device it exits 2 and prints no result.
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -49,6 +63,8 @@ MULS_PER_PAIR = 2 * (8 * 8 * 4 + 22 * (4 + 8))
 INT32_MULS_PER_MUL = 8
 BYTES_PER_PAIR = 12 * 8
 WARM_RUNS = 3  # warm setup/prove/verify repeats after the cold run; medians reported
+KERNEL = "compress_level_kernel"
+REGS_PER_SM, MAX_WARPS_PER_SM, MAX_BLOCKS_PER_SM = 65536, 64, 32  # sm_90
 
 
 def emit(obj) -> None:
@@ -90,6 +106,41 @@ def wall_ms(fn):
     return (time.perf_counter() - t0) * 1e3, out
 
 
+def kernel_stats(so: str, threads: int) -> dict:
+    """SASS length and resources of the compression kernel in library `so`,
+    and the warps an SM holds at `threads` a block, worked out from its
+    registers (allocated per warp in units of 256). `loop_bodies` lists the
+    instructions of each backward branch's loop, in code order; `opcodes`
+    counts the instructions by opcode."""
+    sass = subprocess.run(["cuobjdump", "-sass", so], capture_output=True, text=True).stdout
+    n, inside, loops, ops = 0, False, [], {}
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            inside = KERNEL in ln
+            continue
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+([^;]*)", ln)
+        if inside and m:
+            n += 1
+            op = m.group(2).split()[1 if m.group(2).startswith("@") else 0]
+            ops[op] = ops.get(op, 0) + 1
+            addr, target = int(m.group(1), 16), re.search(r"BRA (0x[0-9a-f]+)", m.group(2))
+            if target and int(target.group(1), 16) < addr:
+                loops.append((addr - int(target.group(1), 16)) // 16 + 1)
+    usage = subprocess.run(["cuobjdump", "-res-usage", so], capture_output=True, text=True).stdout
+    lines = usage.splitlines()
+    res = next(lines[i + 1] for i, ln in enumerate(lines) if KERNEL in ln)
+    regs, stack, local = (int(re.search(rf"{k}:(\d+)", res).group(1)) for k in ("REG", "STACK", "LOCAL"))
+    warps_per_block = threads // 32
+    warps_by_regs = REGS_PER_SM // (-(-regs * 32 // 256) * 256)
+    blocks = min(warps_by_regs // warps_per_block, MAX_WARPS_PER_SM // warps_per_block, MAX_BLOCKS_PER_SM)
+    return {
+        "sass_instructions": n, "sass_bytes": 16 * n, "loop_bodies": loops,
+        "opcodes": dict(sorted(ops.items(), key=lambda kv: -kv[1])), "registers": regs,
+        "stack_bytes": stack, "local_bytes": local, "threads_per_block": threads,
+        "resident_warps_per_sm": blocks * warps_per_block,
+    }
+
+
 def phase_build():
     from deepprove_tpu_torch import native
     from deepprove_tpu_torch.hashing import poseidon2_cuda
@@ -102,29 +153,58 @@ def phase_build():
     host_build_s = time.perf_counter() - t0
     card = nvidia_smi("name,power.limit")
     print(card, flush=True)
-    usage = subprocess.run(
-        ["cuobjdump", "-res-usage", so], capture_output=True, text=True
-    ).stdout
-    regs = [ln.strip() for ln in usage.splitlines() if "REG" in ln]
+    threads, blocks_per_sm = poseidon2_cuda.launch_config()
+    stats = kernel_stats(so, threads)
+    # the occupancy calculator has the last word on residency
+    stats["resident_warps_per_sm"] = blocks_per_sm * threads // 32
     emit({
         "phase": "build", "ok": True, "nvcc_s": build_s, "gcc_s": host_build_s,
-        "library": os.path.relpath(so, ROOT), "card": card, "resource_usage": regs,
-        "torch": torch.__version__, "cuda": torch.version.cuda,
+        "library": os.path.relpath(so, ROOT), "card": card, "kernel": KERNEL, **stats,
+        "blocks_per_sm": blocks_per_sm, "torch": torch.__version__, "cuda": torch.version.cuda,
     })
-    return card
+    return card, stats
 
 
-def phase_kernels():
-    from deepprove_tpu_torch.fields import gf, host
+def check_levels(threads: int, seed: int = 7) -> dict:
+    """Name -> (4, 2M) uint64 level: random ones at sizes on both sides of
+    the block (`threads`) and warp boundaries, all-equal levels of each edge
+    value, and random mixes of them. The last entry is the 2^19-pair level."""
+    from deepprove_tpu_torch.fields import host
+
+    rng = np.random.default_rng(seed)
+    edge = np.array(host.EDGE_VALUES, dtype=np.uint64)
+    levels = {f"edge_all_{v}": np.full((4, 2 * 33), v, dtype=np.uint64) for v in host.EDGE_VALUES}
+    for m in (threads + 1, (1 << 17) + 5):
+        levels[f"edge_mix_{m}"] = rng.choice(edge, size=(4, 2 * m))
+    for m in sorted({1, 3, 31, 32, 33, threads - 1, threads, threads + 1, 1000, (1 << 17) + 5, 1 << 19}):
+        levels[f"random_{m}"] = rng.integers(0, host.P, size=(4, 2 * m), dtype=np.uint64)
+    return levels
+
+
+def probe_operands(seed: int = 11) -> tuple:
+    """Three (N,) uint64 operand vectors, mostly in [p, 2^64): the range that
+    lazy reduction lets values reach inside the kernel."""
+    from deepprove_tpu_torch.fields import host
+
+    rng = np.random.default_rng(seed)
+    top = [host.P, host.P + 1, 2**64 - 2**32, 2**64 - 2, 2**64 - 1]
+    pool = np.array(top + list(host.EDGE_VALUES), dtype=np.uint64)
+    return tuple(
+        np.concatenate([rng.integers(host.P, 2**64 - 1, size=2048, dtype=np.uint64, endpoint=True),
+                        rng.choice(pool, size=512)])
+        for _ in range(3)
+    )
+
+
+def phase_kernels(threads: int):
+    from deepprove_tpu_torch.fields import gf
     from deepprove_tpu_torch.hashing import poseidon2_cuda as pc
     from deepprove_tpu_torch.pcs.merkle import MerkleTree
 
-    rng = np.random.default_rng(7)
-    sizes = [1, 3, 1000, (1 << 17) + 5, 1 << 19]
-    mismatches, max_err, per_size = 0, 0, {}
+    mismatches, max_err, per_level = 0, 0, {}
     level = None
-    for m in sizes:
-        level = gf.from_u64(rng.integers(0, host.P, size=(4, 2 * m), dtype=np.uint64), "cuda")
+    for name, host_level in check_levels(threads).items():
+        level = gf.from_u64(host_level, "cuda")
         got = pc.compress_level_cuda(level)
         want = pc.compress_level_plain(level)
         torch.cuda.synchronize()
@@ -134,22 +214,27 @@ def phase_kernels():
             g, w = gf.to_u64(got[:, bad]), gf.to_u64(want[:, bad])
             max_err = max(max_err, max(abs(int(a) - int(b)) for a, b in zip(g.ravel(), w.ravel())))
         mismatches += n_bad
-        per_size[str(m)] = n_bad
+        per_level[name] = n_bad
+
+    a, b, c = probe_operands()
+    got = gf.to_u64(pc.goldilocks_probe(*(gf.from_u64(x, "cuda") for x in (a, b, c))))
+    probe_mismatches = int((got != pc.goldilocks_probe_plain(a, b, c)).sum())
 
     with open(os.path.join(ROOT, "tests", "golden_vectors.json")) as f:
         golden = json.load(f)["merkle_root_0to15"]
     root = MerkleTree.from_leaves(gf.from_u64(np.arange(16, dtype=np.uint64), "cuda")).root
     golden_ok = list(root) == golden
 
-    pairs = sizes[-1]
+    pairs = level.shape[1] // 2
     kernel_ms = cuda_ms(lambda: pc.compress_level_cuda(level), 20)
     plain_ms = cuda_ms(lambda: pc.compress_level_plain(level), 2)
     rate = _int_mul_rate()
     ops_ms = pairs * MULS_PER_PAIR * INT32_MULS_PER_MUL / rate * 1e3
     bytes_ms = pairs * BYTES_PER_PAIR / HBM_BYTES_PER_S * 1e3
-    ok = mismatches == 0 and golden_ok
+    ok = mismatches == 0 and probe_mismatches == 0 and golden_ok
     result = {
-        "phase": "kernels", "ok": ok, "mismatches": mismatches, "per_size": per_size,
+        "phase": "kernels", "ok": ok, "mismatches": mismatches, "per_level": per_level,
+        "field_probe_operands": int(a.size), "field_probe_mismatches": probe_mismatches,
         "golden_root_ok": golden_ok, "pairs": pairs, "kernel_ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
         "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
@@ -158,6 +243,49 @@ def phase_kernels():
     emit(result)
     if not ok:
         raise AssertionError("kernel disagrees with its plain version")
+    return result
+
+
+@contextlib.contextmanager
+def kernel_library(so_path: str):
+    """Route `compress_level_cuda` through another build of the kernel."""
+    from deepprove_tpu_torch.hashing import poseidon2_cuda as pc
+
+    saved = pc._LIB
+    pc._LIB = pc.load(so_path)
+    try:
+        yield
+    finally:
+        pc._LIB = saved
+
+
+def phase_against(source: str, threads: int, kernel_ms: float) -> dict:
+    """Another source of the same entry point, built, checked and timed in
+    turns with the package's kernel on the same 2^19-pair level."""
+    from deepprove_tpu_torch.fields import gf, host
+    from deepprove_tpu_torch.hashing import poseidon2_cuda as pc
+
+    so = pc.build(os.path.abspath(source))
+    level = gf.from_u64(
+        np.random.default_rng(7).integers(0, host.P, size=(4, 2 << 19), dtype=np.uint64), "cuda"
+    )
+    this = lambda: pc.compress_level_cuda(level)  # noqa: E731
+    want = this()
+    with kernel_library(so):
+        equal = torch.equal(this(), want)
+        other_ms = [cuda_ms(this, 20)]
+    this_ms = [cuda_ms(this, 20), cuda_ms(this, 20)]
+    with kernel_library(so):
+        other_ms.append(cuda_ms(this, 20))
+    result = {
+        "phase": "against", "ok": equal, "source": source, "pairs": 1 << 19,
+        "other_ms": other_ms, "this_ms": this_ms, "kernels_phase_ms": kernel_ms,
+        "speedup": float(np.median(other_ms) / np.median(this_ms)),
+        "other": kernel_stats(so, threads),
+    }
+    emit(result)
+    if not equal:
+        raise AssertionError("the other kernel disagrees with this one")
     return result
 
 
@@ -298,11 +426,16 @@ def phase_reference():
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--against", help="another .cu source of the compression entry point to time beside this one")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    card = phase_build()
-    k = phase_kernels()
+    card, stats = phase_build()
+    k = phase_kernels(stats["threads_per_block"])
+    if args.against:
+        phase_against(args.against, stats["threads_per_block"], k["kernel_ms"])
     s = phase_slice()
     phase_reference()
     emit({"kernels": [{
@@ -317,6 +450,8 @@ def main() -> int:
         "bound_ms": k["bound_ms"],
         "bound_by": "operations" if k["bound_ops_ms"] >= k["bound_bytes_ms"] else "bytes",
         "library_ms": None,
+        "sass_instructions": stats["sass_instructions"],
+        "resident_warps_per_sm": stats["resident_warps_per_sm"],
     }]})
     print(card, flush=True)
     emit({

@@ -19,6 +19,10 @@ EXT_W = 7
 MULTIPLICATIVE_GENERATOR = 7
 TWO_ADICITY = 32
 TWO_ADIC_GENERATOR = 1753635133440165772
+# Canonical values at the word and reduction boundaries of the u64 form,
+# where a carry, a borrow or the final fold below p happens: the inputs that
+# test a hand-written kernel's arithmetic beyond random values.
+EDGE_VALUES = (0, 1, (1 << 32) - 1, 1 << 32, 1 << 63, P - 2, P - 1)
 
 _U64 = np.uint64
 _U32MASK = _U64(0xFFFFFFFF)

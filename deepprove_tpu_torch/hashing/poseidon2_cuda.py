@@ -10,7 +10,10 @@ raises if the kernel cannot run; on a CPU tensor it computes
 PyTorch call computes Poseidon2.
 
 The kernel library is built with nvcc for sm_90a at first use into the
-package's build directory and bound with ctypes.
+package's build directory and bound with ctypes. It also carries
+`goldilocks_probe`, which runs the kernel's field arithmetic on given
+operands so that its lazy (non-canonical) ranges can be checked on the
+card against `goldilocks_probe_plain`.
 """
 
 from __future__ import annotations
@@ -19,9 +22,11 @@ import ctypes
 import os
 import shutil
 
+import numpy as np
 import torch
 
 from .. import native
+from ..fields import gf
 from . import poseidon2
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
@@ -40,33 +45,60 @@ def _nvcc() -> str:
     return path
 
 
-def nvcc_command(include_dir: str, out_path: str) -> list[str]:
+def nvcc_command(include_dir: str, out_path: str, source: str = SOURCE) -> list[str]:
     return [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
         "-shared", "-Xcompiler", "-fPIC", "-I", include_dir, "-I", CSRC,
-        "-o", out_path, SOURCE,
+        "-o", out_path, source,
     ]
 
 
-def build() -> str:
-    """Build (or find) the kernel library; returns the .so path."""
+def build(source: str = SOURCE) -> str:
+    """Build (or find) the kernel library; returns the .so path.
+
+    `source` defaults to the package's kernel. Another file with the same
+    entry point (an earlier version of the kernel, to time both in one run)
+    builds the same way, with the `goldilocks.cuh` beside it."""
+    header = os.path.join(os.path.dirname(source), "goldilocks.cuh")
     return native.build_shared_lib(
-        "poseidon2_cuda", [SOURCE, os.path.join(CSRC, "goldilocks.cuh")], nvcc_command
+        "poseidon2_cuda", [source, header], lambda inc, out: nvcc_command(inc, out, source)
     )
+
+
+def load(so_path: str) -> ctypes.CDLL:
+    """ctypes handle to a built kernel library, its compression entry typed."""
+    lib = ctypes.CDLL(so_path)
+    lib.dp_poseidon2_compress_level.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+    ]
+    lib.dp_poseidon2_compress_level.restype = ctypes.c_int
+    lib.dp_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.dp_cuda_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def _lib():
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(build())
-        lib.dp_poseidon2_compress_level.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-        ]
-        lib.dp_poseidon2_compress_level.restype = ctypes.c_int
-        lib.dp_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.dp_cuda_error_string.restype = ctypes.c_char_p
-        _LIB = lib
+        _LIB = load(build())
     return _LIB
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} failed: " + lib.dp_cuda_error_string(err).decode())
+
+
+def launch_config() -> tuple[int, int]:
+    """(threads a block, resident blocks an SM) of the compression kernel on
+    the current device, from the CUDA occupancy calculator."""
+    lib = _lib()
+    fn = lib.dp_poseidon2_launch_config
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    threads, blocks = ctypes.c_int(), ctypes.c_int()
+    _raise_on(lib, fn(ctypes.byref(threads), ctypes.byref(blocks)), "occupancy query")
+    return threads.value, blocks.value
 
 
 def _check_level(digests: torch.Tensor) -> int:
@@ -103,11 +135,7 @@ def compress_level_cuda(digests: torch.Tensor) -> torch.Tensor:
         err = lib.dp_poseidon2_compress_level(
             digests.data_ptr(), out.data_ptr(), m, stream
         )
-    if err != 0:
-        raise RuntimeError(
-            "poseidon2 compress kernel launch failed: "
-            + lib.dp_cuda_error_string(err).decode()
-        )
+    _raise_on(lib, err, "poseidon2 compress kernel launch")
     LAUNCHES += 1
     return out
 
@@ -117,3 +145,38 @@ def compress_level(digests: torch.Tensor) -> torch.Tensor:
     if digests.device.type == "cpu":
         return compress_level_plain(digests)
     return compress_level_cuda(digests)
+
+
+def goldilocks_probe_plain(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """What `goldilocks_probe` must give, in Python ints: for u64 operands
+    (any in [0, 2^64), not only canonical ones) the (4, N) rows
+    a*b, a*b + c, a + c, 7(a + b + c), each mod p."""
+    rows = [[], [], [], []]
+    for x, y, z in zip(map(int, a), map(int, b), map(int, c)):
+        rows[0].append(x * y % gf.P)
+        rows[1].append((x * y + z) % gf.P)
+        rows[2].append((x + z) % gf.P)
+        rows[3].append(7 * (x + y + z) % gf.P)
+    return np.array(rows, dtype=np.uint64)
+
+
+def goldilocks_probe(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """The kernel library's field arithmetic on (N,) int64 CUDA tensors
+    holding u64 bit patterns: the rows of `goldilocks_probe_plain`, from the
+    same `mul`, `mul_add`, `add_const` and unreduced sum + `fold` that the
+    compression kernel runs."""
+    for t in (a, b, c):
+        if t.device.type != "cuda" or t.dtype != torch.int64 or t.dim() != 1:
+            raise ValueError("goldilocks_probe takes (N,) int64 CUDA tensors")
+        if not t.is_contiguous() or t.shape != a.shape:
+            raise ValueError("goldilocks_probe operands must be contiguous and of one shape")
+    out = torch.empty((4, a.shape[0]), dtype=torch.int64, device=a.device)
+    lib = _lib()
+    fn = lib.dp_goldilocks_probe
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr(), a.shape[0], stream)
+    _raise_on(lib, err, "goldilocks probe launch")
+    return out

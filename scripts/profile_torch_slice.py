@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where one prove of the port's Dense-chain slice spends its time on a GPU.
 
-    python3 scripts/profile_torch_slice.py
+    python3 scripts/profile_torch_slice.py [--against OTHER.cu]
 
 Builds the chain [4, 1024, 1024, 3] as chip_smoke.py does, runs setup and a
 warm prove, then:
@@ -10,12 +10,17 @@ warm prove, then:
      and exit, so queued device work is charged to the step that queued it;
   2. `profile`: one prove under torch.profiler (CUDA activity): kernel
      launches, summed kernel time, the device's busy share of an
-     unprofiled warm prove, and the kernels that take the most time.
+     unprofiled warm prove, the kernels that take the most time, and the
+     Merkle-compression kernel's own time and launches;
+  3. with --against: `profile` again with the Merkle kernel built from
+     another source of the same entry point (an earlier version), so that
+     the two kernels' time in one prove compare within one run.
 Prints one JSON line per part. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import inspect
 import json
@@ -48,7 +53,38 @@ def _wrap(owner, name, table, key):
     return raw
 
 
+def profile_prove(prove, warm_ms: float, cs, library: str) -> None:
+    """One prove under torch.profiler: kernel time, busy share, top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prove()
+        torch.cuda.synchronize()
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            rec = by_name[e.name[:160]]
+            rec[0] += e.time_range.elapsed_us()
+            rec[1] += 1
+    kernel_us = sum(v[0] for v in by_name.values())
+    merkle = [v for k, v in by_name.items() if cs.KERNEL in k]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    print(json.dumps({
+        "part": "profile", "merkle_library": library,
+        "kernel_launches": sum(v[1] for v in by_name.values()),
+        "kernel_ms": kernel_us / 1e3, "warm_prove_ms": warm_ms,
+        "busy_share": kernel_us / 1e3 / warm_ms,
+        "merkle_kernel_ms": sum(v[0] for v in merkle) / 1e3,
+        "merkle_kernel_launches": sum(v[1] for v in merkle),
+        "top": [{"kernel": k, "ms": v[0] / 1e3, "count": v[1]} for k, v in top],
+        "card": cs.nvidia_smi("name,power.limit"),
+    }), flush=True)
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--against", help="another .cu source of the Merkle kernel to profile as well")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_slice: no CUDA device is available", file=sys.stderr)
         return 2
@@ -92,26 +128,16 @@ def main() -> int:
         "calls": {k: v[1] for k, v in table.items()},
     }), flush=True)
 
-    from torch.profiler import ProfilerActivity, profile
+    def prove():
+        return Prover(ctx, BasicTranscript(b"m2vec"), device="cuda").prove(trace)
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        Prover(ctx, BasicTranscript(b"m2vec"), device="cuda").prove(trace)
-        torch.cuda.synchronize()
-    by_name = collections.defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            rec = by_name[e.name[:160]]
-            rec[0] += e.time_range.elapsed_us()
-            rec[1] += 1
-    kernel_us = sum(v[0] for v in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    print(json.dumps({
-        "part": "profile", "kernel_launches": sum(v[1] for v in by_name.values()),
-        "kernel_ms": kernel_us / 1e3, "warm_prove_ms": warm_ms,
-        "busy_share": kernel_us / 1e3 / warm_ms,
-        "top": [{"kernel": k, "ms": v[0] / 1e3, "count": v[1]} for k, v in top],
-        "card": cs.nvidia_smi("name,power.limit"),
-    }), flush=True)
+    profile_prove(prove, warm_ms, cs, "package")
+    if args.against:
+        from deepprove_tpu_torch.hashing import poseidon2_cuda
+
+        with cs.kernel_library(poseidon2_cuda.build(os.path.abspath(args.against))):
+            prove()  # warm the other build before it is profiled
+            profile_prove(prove, warm_ms, cs, args.against)
     return 0
 
 

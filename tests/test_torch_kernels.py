@@ -11,8 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from deepprove_tpu_torch.fields import gf
+from deepprove_tpu_torch.fields import gf, host
 from deepprove_tpu_torch.hashing import poseidon2_cuda
+
+EDGE = np.array(host.EDGE_VALUES, dtype=np.uint64)
 
 
 def _level(seed, m, device="cpu"):
@@ -47,14 +49,55 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# (kind, size): a size is pairs, or ("block", k) = the kernel's block size + k
+_CASES = (
+    [("random", m) for m in (1, 3, 31, 32, 33, 1000, (1 << 17) + 5, 1 << 19)]
+    + [("random", ("block", k)) for k in (-1, 0, 1)]
+    + [(("edge", i), 33) for i in range(len(host.EDGE_VALUES))]
+    + [("edge_mix", ("block", 1)), ("edge_mix", (1 << 17) + 5)]
+)
+
+
+def _case_level(kind, size, device):
+    m = size if isinstance(size, int) else poseidon2_cuda.launch_config()[0] + size[1]
+    if kind == "random":
+        return _level(17, m, device)
+    if kind == "edge_mix":
+        return gf.from_u64(np.random.default_rng(18).choice(EDGE, size=(4, 2 * m)), device)
+    return gf.from_u64(np.full((4, 2 * m), EDGE[kind[1]], dtype=np.uint64), device)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 3, 1000, (1 << 17) + 5])
-def test_cuda_kernel_matches_plain(cuda_device, m):
-    level = _level(17, m, cuda_device)
+@pytest.mark.parametrize("kind,size", _CASES, ids=[f"{k}-{s}" for k, s in _CASES])
+def test_cuda_kernel_matches_plain(cuda_device, kind, size):
+    level = _case_level(kind, size, cuda_device)
     before = poseidon2_cuda.LAUNCHES
     got = poseidon2_cuda.compress_level(level)
     assert poseidon2_cuda.LAUNCHES == before + 1
     assert torch.equal(got, poseidon2_cuda.compress_level_plain(level))
+
+
+@pytest.mark.cuda
+def test_cuda_field_arithmetic_matches_python_ints(cuda_device):
+    """The kernel's lazy field arithmetic on operands in [p, 2^64)."""
+    rng = np.random.default_rng(20)
+    top = np.array([gf.P, gf.P + 1, 2**64 - 2**32, 2**64 - 2, 2**64 - 1], dtype=np.uint64)
+    a, b, c = (
+        np.concatenate([rng.integers(gf.P, 2**64 - 1, size=1024, dtype=np.uint64, endpoint=True),
+                        rng.choice(np.concatenate([top, EDGE]), size=256)])
+        for _ in range(3)
+    )
+    got = poseidon2_cuda.goldilocks_probe(*(gf.from_u64(x, cuda_device) for x in (a, b, c)))
+    np.testing.assert_array_equal(gf.to_u64(got), poseidon2_cuda.goldilocks_probe_plain(a, b, c))
+
+
+def test_goldilocks_probe_plain_is_the_field_arithmetic():
+    """The probe's Python-int rows on the largest u64 operands."""
+    m = np.array([2**64 - 1], dtype=np.uint64)
+    p = np.array([gf.P], dtype=np.uint64)
+    rows = poseidon2_cuda.goldilocks_probe_plain(m, p, p + np.uint64(5))
+    lo = 2**64 - 1 - gf.P  # 2^64 - 1 = 2^32 - 2 (mod p)
+    assert rows[:, 0].tolist() == [0, 5, lo + 5, 7 * (lo + 5)]
 
 
 def test_cpu_tensor_takes_the_plain_version():

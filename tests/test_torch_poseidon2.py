@@ -12,7 +12,7 @@ import torch
 from deepprove_tpu.fields import gf as jgf
 from deepprove_tpu.hashing import poseidon2 as jp2
 from deepprove_tpu.pcs import merkle as jmerkle
-from deepprove_tpu_torch.fields import gf
+from deepprove_tpu_torch.fields import gf, host
 from deepprove_tpu_torch.hashing import poseidon2, poseidon2_cuda
 from deepprove_tpu_torch.pcs.merkle import MerkleTree
 
@@ -40,6 +40,20 @@ def test_native_host_permutation_matches_jax_host():
 
 def test_compress_level_plain_matches_compress_host():
     level = _rand(15, (4, 2 * 64))
+    got = gf.to_u64(poseidon2_cuda.compress_level_plain(gf.from_u64(level)))
+    want = jp2.compress_host(level[:, 0::2].T, level[:, 1::2].T).T
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("edge", list(range(len(host.EDGE_VALUES))) + ["mix"])
+def test_compress_level_plain_matches_compress_host_on_edge_values(edge):
+    """Levels of the values at the u64 form's carry and reduction boundaries,
+    the inputs a hand-written kernel's arithmetic gets wrong first."""
+    values = np.array(host.EDGE_VALUES, dtype=np.uint64)
+    if edge == "mix":
+        level = np.random.default_rng(21).choice(values, size=(4, 2 * 64))
+    else:
+        level = np.full((4, 2 * 8), values[edge], dtype=np.uint64)
     got = gf.to_u64(poseidon2_cuda.compress_level_plain(gf.from_u64(level)))
     want = jp2.compress_host(level[:, 0::2].T, level[:, 1::2].T).T
     np.testing.assert_array_equal(got, want)
