@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (`deepprove_tpu_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--against OTHER.cu]
+    python3 chip_smoke.py
 
 Phases, each printing one JSON line:
   1. build   - nvcc builds the Poseidon2 Merkle-compression kernel for
@@ -16,12 +16,6 @@ Phases, each printing one JSON line:
                field arithmetic on operands in [p, 2^64) against Python
                ints; the golden Merkle root; kernel / plain times at 2^19
                pairs beside the least time the card could take.
-     against - only with --against: another source of the same entry
-               point (an earlier version of the kernel) built the same
-               way, checked equal and timed at 2^19 pairs in turns with
-               this one (other, this, this, other), with its SASS length,
-               registers and resident warps (from its registers, at this
-               kernel's block size).
   3. slice   - the Dense chain [4, 1024, 1024, 3] at the reference's
                parameters (200 queries, rate 1/2, basecode 2^7):
                Model.run -> Context.generate -> Prover.prove -> verify on
@@ -36,8 +30,6 @@ and exits non-zero; without a CUDA device it exits 2 and prints no result.
 
 from __future__ import annotations
 
-import argparse
-import contextlib
 import json
 import os
 import re
@@ -64,7 +56,7 @@ INT32_MULS_PER_MUL = 8
 BYTES_PER_PAIR = 12 * 8
 WARM_RUNS = 3  # warm setup/prove/verify repeats after the cold run; medians reported
 KERNEL = "compress_level_kernel"
-REGS_PER_SM, MAX_WARPS_PER_SM, MAX_BLOCKS_PER_SM = 65536, 64, 32  # sm_90
+TIMED_PAIRS = 1 << 19  # the main path's largest level (the 2^21-leaf weight tree's first)
 
 
 def emit(obj) -> None:
@@ -106,39 +98,28 @@ def wall_ms(fn):
     return (time.perf_counter() - t0) * 1e3, out
 
 
-def kernel_stats(so: str, threads: int) -> dict:
-    """SASS length and resources of the compression kernel in library `so`,
-    and the warps an SM holds at `threads` a block, worked out from its
-    registers (allocated per warp in units of 256). `loop_bodies` lists the
-    instructions of each backward branch's loop, in code order; `opcodes`
-    counts the instructions by opcode."""
+def kernel_sass(so: str, kernel: str = KERNEL) -> list[tuple[int, str]]:
+    """(address, instruction) of each SASS instruction of `kernel` (by
+    default the compression kernel) in library `so`, from `cuobjdump -sass`."""
     sass = subprocess.run(["cuobjdump", "-sass", so], capture_output=True, text=True).stdout
-    n, inside, loops, ops = 0, False, [], {}
+    out, inside = [], False
     for ln in sass.splitlines():
         if "Function :" in ln:
-            inside = KERNEL in ln
+            inside = kernel in ln
             continue
         m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+([^;]*)", ln)
         if inside and m:
-            n += 1
-            op = m.group(2).split()[1 if m.group(2).startswith("@") else 0]
-            ops[op] = ops.get(op, 0) + 1
-            addr, target = int(m.group(1), 16), re.search(r"BRA (0x[0-9a-f]+)", m.group(2))
-            if target and int(target.group(1), 16) < addr:
-                loops.append((addr - int(target.group(1), 16)) // 16 + 1)
+            out.append((int(m.group(1), 16), m.group(2)))
+    return out
+
+
+def kernel_resources(so: str) -> dict:
+    """Registers, stack and local (spill) bytes of the compression kernel."""
     usage = subprocess.run(["cuobjdump", "-res-usage", so], capture_output=True, text=True).stdout
     lines = usage.splitlines()
     res = next(lines[i + 1] for i, ln in enumerate(lines) if KERNEL in ln)
     regs, stack, local = (int(re.search(rf"{k}:(\d+)", res).group(1)) for k in ("REG", "STACK", "LOCAL"))
-    warps_per_block = threads // 32
-    warps_by_regs = REGS_PER_SM // (-(-regs * 32 // 256) * 256)
-    blocks = min(warps_by_regs // warps_per_block, MAX_WARPS_PER_SM // warps_per_block, MAX_BLOCKS_PER_SM)
-    return {
-        "sass_instructions": n, "sass_bytes": 16 * n, "loop_bodies": loops,
-        "opcodes": dict(sorted(ops.items(), key=lambda kv: -kv[1])), "registers": regs,
-        "stack_bytes": stack, "local_bytes": local, "threads_per_block": threads,
-        "resident_warps_per_sm": blocks * warps_per_block,
-    }
+    return {"registers": regs, "stack_bytes": stack, "local_bytes": local}
 
 
 def phase_build():
@@ -154,21 +135,24 @@ def phase_build():
     card = nvidia_smi("name,power.limit")
     print(card, flush=True)
     threads, blocks_per_sm = poseidon2_cuda.launch_config()
-    stats = kernel_stats(so, threads)
-    # the occupancy calculator has the last word on residency
-    stats["resident_warps_per_sm"] = blocks_per_sm * threads // 32
+    n = len(kernel_sass(so))
+    stats = {
+        "sass_instructions": n, "sass_bytes": 16 * n, **kernel_resources(so),
+        "threads_per_block": threads, "blocks_per_sm": blocks_per_sm,
+        "resident_warps_per_sm": blocks_per_sm * threads // 32,
+    }
     emit({
         "phase": "build", "ok": True, "nvcc_s": build_s, "gcc_s": host_build_s,
         "library": os.path.relpath(so, ROOT), "card": card, "kernel": KERNEL, **stats,
-        "blocks_per_sm": blocks_per_sm, "torch": torch.__version__, "cuda": torch.version.cuda,
+        "torch": torch.__version__, "cuda": torch.version.cuda,
     })
     return card, stats
 
 
 def check_levels(threads: int, seed: int = 7) -> dict:
     """Name -> (4, 2M) uint64 level: random ones at sizes on both sides of
-    the block (`threads`) and warp boundaries, all-equal levels of each edge
-    value, and random mixes of them. The last entry is the 2^19-pair level."""
+    the block (`threads`) and warp boundaries and at TIMED_PAIRS, all-equal
+    levels of each edge value, and random mixes of them."""
     from deepprove_tpu_torch.fields import host
 
     rng = np.random.default_rng(seed)
@@ -176,7 +160,7 @@ def check_levels(threads: int, seed: int = 7) -> dict:
     levels = {f"edge_all_{v}": np.full((4, 2 * 33), v, dtype=np.uint64) for v in host.EDGE_VALUES}
     for m in (threads + 1, (1 << 17) + 5):
         levels[f"edge_mix_{m}"] = rng.choice(edge, size=(4, 2 * m))
-    for m in sorted({1, 3, 31, 32, 33, threads - 1, threads, threads + 1, 1000, (1 << 17) + 5, 1 << 19}):
+    for m in sorted({1, 3, 31, 32, 33, threads - 1, threads, threads + 1, 1000, (1 << 17) + 5, TIMED_PAIRS}):
         levels[f"random_{m}"] = rng.integers(0, host.P, size=(4, 2 * m), dtype=np.uint64)
     return levels
 
@@ -197,13 +181,15 @@ def probe_operands(seed: int = 11) -> tuple:
 
 
 def phase_kernels(threads: int):
+    import torch_reference as R
+
     from deepprove_tpu_torch.fields import gf
     from deepprove_tpu_torch.hashing import poseidon2_cuda as pc
     from deepprove_tpu_torch.pcs.merkle import MerkleTree
 
     mismatches, max_err, per_level = 0, 0, {}
-    level = None
-    for name, host_level in check_levels(threads).items():
+    levels = check_levels(threads)
+    for name, host_level in levels.items():
         level = gf.from_u64(host_level, "cuda")
         got = pc.compress_level_cuda(level)
         want = pc.compress_level_plain(level)
@@ -218,14 +204,15 @@ def phase_kernels(threads: int):
 
     a, b, c = probe_operands()
     got = gf.to_u64(pc.goldilocks_probe(*(gf.from_u64(x, "cuda") for x in (a, b, c))))
-    probe_mismatches = int((got != pc.goldilocks_probe_plain(a, b, c)).sum())
+    probe_mismatches = int((got != R.goldilocks_probe_plain(a, b, c)).sum())
 
     with open(os.path.join(ROOT, "tests", "golden_vectors.json")) as f:
         golden = json.load(f)["merkle_root_0to15"]
     root = MerkleTree.from_leaves(gf.from_u64(np.arange(16, dtype=np.uint64), "cuda")).root
     golden_ok = list(root) == golden
 
-    pairs = level.shape[1] // 2
+    pairs = TIMED_PAIRS
+    level = gf.from_u64(levels[f"random_{pairs}"], "cuda")
     kernel_ms = cuda_ms(lambda: pc.compress_level_cuda(level), 20)
     plain_ms = cuda_ms(lambda: pc.compress_level_plain(level), 2)
     rate = _int_mul_rate()
@@ -243,49 +230,6 @@ def phase_kernels(threads: int):
     emit(result)
     if not ok:
         raise AssertionError("kernel disagrees with its plain version")
-    return result
-
-
-@contextlib.contextmanager
-def kernel_library(so_path: str):
-    """Route `compress_level_cuda` through another build of the kernel."""
-    from deepprove_tpu_torch.hashing import poseidon2_cuda as pc
-
-    saved = pc._LIB
-    pc._LIB = pc.load(so_path)
-    try:
-        yield
-    finally:
-        pc._LIB = saved
-
-
-def phase_against(source: str, threads: int, kernel_ms: float) -> dict:
-    """Another source of the same entry point, built, checked and timed in
-    turns with the package's kernel on the same 2^19-pair level."""
-    from deepprove_tpu_torch.fields import gf, host
-    from deepprove_tpu_torch.hashing import poseidon2_cuda as pc
-
-    so = pc.build(os.path.abspath(source))
-    level = gf.from_u64(
-        np.random.default_rng(7).integers(0, host.P, size=(4, 2 << 19), dtype=np.uint64), "cuda"
-    )
-    this = lambda: pc.compress_level_cuda(level)  # noqa: E731
-    want = this()
-    with kernel_library(so):
-        equal = torch.equal(this(), want)
-        other_ms = [cuda_ms(this, 20)]
-    this_ms = [cuda_ms(this, 20), cuda_ms(this, 20)]
-    with kernel_library(so):
-        other_ms.append(cuda_ms(this, 20))
-    result = {
-        "phase": "against", "ok": equal, "source": source, "pairs": 1 << 19,
-        "other_ms": other_ms, "this_ms": this_ms, "kernels_phase_ms": kernel_ms,
-        "speedup": float(np.median(other_ms) / np.median(this_ms)),
-        "other": kernel_stats(so, threads),
-    }
-    emit(result)
-    if not equal:
-        raise AssertionError("the other kernel disagrees with this one")
     return result
 
 
@@ -426,16 +370,11 @@ def phase_reference():
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--against", help="another .cu source of the compression entry point to time beside this one")
-    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     card, stats = phase_build()
     k = phase_kernels(stats["threads_per_block"])
-    if args.against:
-        phase_against(args.against, stats["threads_per_block"], k["kernel_ms"])
     s = phase_slice()
     phase_reference()
     emit({"kernels": [{

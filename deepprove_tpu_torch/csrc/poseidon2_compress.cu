@@ -7,7 +7,9 @@
 // overwritten with right -> permute -> parent = [s3, s2, s1, s0], written to
 // the (4, M) output. Width 8, 4 + 22 + 4 rounds, x^7 S-box.
 //
-// What bounds it on Hopper: the integer pipes. A pair is 2 permutations of
+// What bounds it on Hopper: the integer pipes, the IMAD pipe first (its wide
+// and high 32-bit multiplies issue at about 24 and 31 an SM a clock, the low
+// one at 64: scripts/int_mul_rates.cu, PERF.md). A pair is 2 permutations of
 // 8*8*4 + 22*(4 + 8) = 520 Goldilocks multiplies each (1040 a pair), every
 // one a 64x64 -> 128-bit product of 32-bit multiplies plus a reduction,
 // against 96 bytes of device memory (64 read, 32 written). So one thread

@@ -13,7 +13,7 @@ The kernel library is built with nvcc for sm_90a at first use into the
 package's build directory and bound with ctypes. It also carries
 `goldilocks_probe`, which runs the kernel's field arithmetic on given
 operands so that its lazy (non-canonical) ranges can be checked on the
-card against `goldilocks_probe_plain`.
+card against Python ints.
 """
 
 from __future__ import annotations
@@ -22,11 +22,9 @@ import ctypes
 import os
 import shutil
 
-import numpy as np
 import torch
 
 from .. import native
-from ..fields import gf
 from . import poseidon2
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
@@ -45,42 +43,32 @@ def _nvcc() -> str:
     return path
 
 
-def nvcc_command(include_dir: str, out_path: str, source: str = SOURCE) -> list[str]:
+def nvcc_command(include_dir: str, out_path: str) -> list[str]:
     return [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
         "-shared", "-Xcompiler", "-fPIC", "-I", include_dir, "-I", CSRC,
-        "-o", out_path, source,
+        "-o", out_path, SOURCE,
     ]
 
 
-def build(source: str = SOURCE) -> str:
-    """Build (or find) the kernel library; returns the .so path.
-
-    `source` defaults to the package's kernel. Another file with the same
-    entry point (an earlier version of the kernel, to time both in one run)
-    builds the same way, with the `goldilocks.cuh` beside it."""
-    header = os.path.join(os.path.dirname(source), "goldilocks.cuh")
+def build() -> str:
+    """Build (or find) the kernel library; returns the .so path."""
     return native.build_shared_lib(
-        "poseidon2_cuda", [source, header], lambda inc, out: nvcc_command(inc, out, source)
+        "poseidon2_cuda", [SOURCE, os.path.join(CSRC, "goldilocks.cuh")], nvcc_command
     )
-
-
-def load(so_path: str) -> ctypes.CDLL:
-    """ctypes handle to a built kernel library, its compression entry typed."""
-    lib = ctypes.CDLL(so_path)
-    lib.dp_poseidon2_compress_level.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-    ]
-    lib.dp_poseidon2_compress_level.restype = ctypes.c_int
-    lib.dp_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.dp_cuda_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def _lib():
     global _LIB
     if _LIB is None:
-        _LIB = load(build())
+        lib = ctypes.CDLL(build())
+        lib.dp_poseidon2_compress_level.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+        ]
+        lib.dp_poseidon2_compress_level.restype = ctypes.c_int
+        lib.dp_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.dp_cuda_error_string.restype = ctypes.c_char_p
+        _LIB = lib
     return _LIB
 
 
@@ -147,22 +135,10 @@ def compress_level(digests: torch.Tensor) -> torch.Tensor:
     return compress_level_cuda(digests)
 
 
-def goldilocks_probe_plain(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
-    """What `goldilocks_probe` must give, in Python ints: for u64 operands
-    (any in [0, 2^64), not only canonical ones) the (4, N) rows
-    a*b, a*b + c, a + c, 7(a + b + c), each mod p."""
-    rows = [[], [], [], []]
-    for x, y, z in zip(map(int, a), map(int, b), map(int, c)):
-        rows[0].append(x * y % gf.P)
-        rows[1].append((x * y + z) % gf.P)
-        rows[2].append((x + z) % gf.P)
-        rows[3].append(7 * (x + y + z) % gf.P)
-    return np.array(rows, dtype=np.uint64)
-
-
 def goldilocks_probe(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """The kernel library's field arithmetic on (N,) int64 CUDA tensors
-    holding u64 bit patterns: the rows of `goldilocks_probe_plain`, from the
+    holding u64 bit patterns (any in [0, 2^64), not only canonical ones):
+    the (4, N) rows a*b, a*b + c, a + c, 7(a + b + c), each mod p, from the
     same `mul`, `mul_add`, `add_const` and unreduced sum + `fold` that the
     compression kernel runs."""
     for t in (a, b, c):

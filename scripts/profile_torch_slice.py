@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where one prove of the port's Dense-chain slice spends its time on a GPU.
 
-    python3 scripts/profile_torch_slice.py [--against OTHER.cu]
+    python3 scripts/profile_torch_slice.py
 
 Builds the chain [4, 1024, 1024, 3] as chip_smoke.py does, runs setup and a
 warm prove, then:
@@ -12,19 +12,25 @@ warm prove, then:
      launches, summed kernel time, the device's busy share of an
      unprofiled warm prove, the kernels that take the most time, and the
      Merkle-compression kernel's own time and launches;
-  3. with --against: `profile` again with the Merkle kernel built from
-     another source of the same entry point (an earlier version), so that
-     the two kernels' time in one prove compare within one run.
+  3. `kernel`: what limits the Merkle-compression kernel. Its SASS opcode
+     mix and the length of each loop body (instructions from a backward
+     branch's target to the branch), and the rate at which the card issues
+     each 32-bit multiply that a Goldilocks product lowers to, measured by
+     `scripts/int_mul_rates.cu` (multiplies an SM a clock, the clock read
+     inside the kernel), with the multiply bound at 2^19 pairs that the
+     measured wide-multiply rate gives beside chip_smoke.py's `bound_ms`.
 Prints one JSON line per part. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
-import argparse
 import collections
 import inspect
 import json
 import os
+import re
+import shutil
+import statistics
 import sys
 import time
 
@@ -53,38 +59,87 @@ def _wrap(owner, name, table, key):
     return raw
 
 
-def profile_prove(prove, warm_ms: float, cs, library: str) -> None:
-    """One prove under torch.profiler: kernel time, busy share, top kernels."""
-    from torch.profiler import ProfilerActivity, profile
+# PTX multiply -> its kernel in scripts/int_mul_rates.cu; the op id is the index
+RATE_OPS = {
+    "mad.wide.u32": "mad_wide_u32_kernel",
+    "mad.lo.u32": "mad_lo_u32_kernel",
+    "mad.hi.u32": "mad_hi_u32_kernel",
+}
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        prove()
-        torch.cuda.synchronize()
-    by_name = collections.defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            rec = by_name[e.name[:160]]
-            rec[0] += e.time_range.elapsed_us()
-            rec[1] += 1
-    kernel_us = sum(v[0] for v in by_name.values())
-    merkle = [v for k, v in by_name.items() if cs.KERNEL in k]
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+
+def mul_rates(cs, passes: int = 8192, repeats: int = 3) -> dict:
+    """PTX multiply -> its measured issue rate and the SASS opcodes its
+    kernel lowered to (see scripts/int_mul_rates.cu)."""
+    import ctypes
+
+    from deepprove_tpu_torch import native
+
+    src = os.path.join(ROOT, "scripts", "int_mul_rates.cu")
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    so = native.build_shared_lib("int_mul_rates", [src], lambda inc, out: [
+        nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-shared",
+        "-Xcompiler", "-fPIC", "-o", out, src,
+    ])
+    lib = ctypes.CDLL(so)
+    lib.dp_rate_launch.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    threads, blocks = 256, 4 * sms  # one wave: 32 warps on every SM
+    operands = torch.tensor([0x7E3779B9, 0x45EBCA6B], dtype=torch.int32, device="cuda")
+    out = torch.empty(blocks * threads, dtype=torch.int64, device="cuda")
+    clocks = torch.zeros(4, dtype=torch.int64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    muls = blocks * threads * passes * lib.dp_rate_muls_per_pass()
+    rates = {}
+    for op, (name, kernel) in enumerate(RATE_OPS.items()):
+        runs = []
+        for _ in range(repeats + 1):  # the first run warms up
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            err = lib.dp_rate_launch(op, operands.data_ptr(), out.data_ptr(), clocks.data_ptr(),
+                                     blocks, threads, passes, stream)
+            end.record()
+            torch.cuda.synchronize()
+            if err:
+                raise RuntimeError(f"{name} rate kernel launch failed: cudaError {err}")
+            c0, t0, c1, t1 = clocks.tolist()
+            runs.append((start.elapsed_time(end), (c1 - c0) / (t1 - t0)))
+        ms = statistics.median(r[0] for r in runs[1:])
+        ghz = statistics.median(r[1] for r in runs[1:])
+        sass = collections.Counter(_opcode(text) for _, text in cs.kernel_sass(so, kernel))
+        rates[name] = {"ms": ms, "sm_clock_ghz": ghz, "muls_per_s": muls / (ms * 1e-3),
+                       "muls_per_sm_per_clock": muls / (ms * 1e-3) / sms / (ghz * 1e9),
+                       "sass_opcodes": dict(sass.most_common(4))}
+    return rates
+
+
+def _opcode(instruction: str) -> str:
+    return instruction.split()[1 if instruction.startswith("@") else 0]
+
+
+def kernel_part(cs) -> None:
+    """The Merkle kernel's code shape and the multiply rates it runs at."""
+    from deepprove_tpu_torch.hashing import poseidon2_cuda
+
+    sass = cs.kernel_sass(poseidon2_cuda.build())
+    opcodes = collections.Counter(_opcode(text) for _, text in sass)
+    loops = []
+    for addr, text in sass:
+        target = re.search(r"BRA (0x[0-9a-f]+)", text)
+        if target and int(target.group(1), 16) < addr:
+            loops.append((addr - int(target.group(1), 16)) // 16 + 1)
+    rates = mul_rates(cs)
+    # a Goldilocks product is four 32x32 -> 64 wide multiplies
+    wides = cs.TIMED_PAIRS * cs.MULS_PER_PAIR * 4
     print(json.dumps({
-        "part": "profile", "merkle_library": library,
-        "kernel_launches": sum(v[1] for v in by_name.values()),
-        "kernel_ms": kernel_us / 1e3, "warm_prove_ms": warm_ms,
-        "busy_share": kernel_us / 1e3 / warm_ms,
-        "merkle_kernel_ms": sum(v[0] for v in merkle) / 1e3,
-        "merkle_kernel_launches": sum(v[1] for v in merkle),
-        "top": [{"kernel": k, "ms": v[0] / 1e3, "count": v[1]} for k, v in top],
+        "part": "kernel", "kernel": cs.KERNEL, "sass_instructions": len(sass),
+        "loop_bodies": loops, "opcodes": dict(opcodes.most_common()), "mul_rates": rates,
+        "pairs": cs.TIMED_PAIRS,
+        "mul_bound_ms_at_measured_wide_rate": wides / rates["mad.wide.u32"]["muls_per_s"] * 1e3,
         "card": cs.nvidia_smi("name,power.limit"),
     }), flush=True)
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--against", help="another .cu source of the Merkle kernel to profile as well")
-    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_slice: no CUDA device is available", file=sys.stderr)
         return 2
@@ -128,16 +183,30 @@ def main() -> int:
         "calls": {k: v[1] for k, v in table.items()},
     }), flush=True)
 
-    def prove():
-        return Prover(ctx, BasicTranscript(b"m2vec"), device="cuda").prove(trace)
+    from torch.profiler import ProfilerActivity, profile
 
-    profile_prove(prove, warm_ms, cs, "package")
-    if args.against:
-        from deepprove_tpu_torch.hashing import poseidon2_cuda
-
-        with cs.kernel_library(poseidon2_cuda.build(os.path.abspath(args.against))):
-            prove()  # warm the other build before it is profiled
-            profile_prove(prove, warm_ms, cs, args.against)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        Prover(ctx, BasicTranscript(b"m2vec"), device="cuda").prove(trace)
+        torch.cuda.synchronize()
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            rec = by_name[e.name[:160]]
+            rec[0] += e.time_range.elapsed_us()
+            rec[1] += 1
+    kernel_us = sum(v[0] for v in by_name.values())
+    merkle = [v for k, v in by_name.items() if cs.KERNEL in k]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    print(json.dumps({
+        "part": "profile", "kernel_launches": sum(v[1] for v in by_name.values()),
+        "kernel_ms": kernel_us / 1e3, "warm_prove_ms": warm_ms,
+        "busy_share": kernel_us / 1e3 / warm_ms,
+        "merkle_kernel_ms": sum(v[0] for v in merkle) / 1e3,
+        "merkle_kernel_launches": sum(v[1] for v in merkle),
+        "top": [{"kernel": k, "ms": v[0] / 1e3, "count": v[1]} for k, v in top],
+        "card": cs.nvidia_smi("name,power.limit"),
+    }), flush=True)
+    kernel_part(cs)
     return 0
 
 

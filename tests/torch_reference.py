@@ -92,3 +92,16 @@ def plain(obj):
 def load():
     with open(REFERENCE_PATH) as f:
         return json.load(f)
+
+
+def goldilocks_probe_plain(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """What the CUDA library's `goldilocks_probe` must give, in Python ints:
+    for u64 operands (any in [0, 2^64), not only canonical ones) the (4, N)
+    rows a*b, a*b + c, a + c, 7(a + b + c), each mod p."""
+    rows = [[], [], [], []]
+    for x, y, z in zip(map(int, a), map(int, b), map(int, c)):
+        rows[0].append(x * y % P)
+        rows[1].append((x * y + z) % P)
+        rows[2].append((x + z) % P)
+        rows[3].append(7 * (x + y + z) % P)
+    return np.array(rows, dtype=np.uint64)
