@@ -16,14 +16,19 @@ Phases, each printing one JSON line:
                field arithmetic on operands in [p, 2^64) against Python
                ints; the golden Merkle root; kernel / plain times at 2^19
                pairs beside the least time the card could take.
-  3. slice   - the Dense chain [4, 1024, 1024, 3] at the reference's
+  3. slice   - the Dense-only chain [4, 1024, 1024, 3] at the reference's
                parameters (200 queries, rate 1/2, basecode 2^7):
                Model.run -> Context.generate -> Prover.prove -> verify on
                the card, the verifier rejecting a changed output, and the
                kernel's launches in that run; then the medians of three warm
                setup/prove/verify runs and the transcript's device copies.
-  4. reference - the Dense chain [16, 32, 8] proved on the card must equal
-               the JAX package's proof frozen in tests/torch_reference.json.
+  4. mlp_4m  - Dense-4M as bench.py's build_mlp_4m builds it (six Dense ->
+               Requant -> ReLU blocks, [4, 1024 x5, 3], logup-GKR for the
+               lookups), driven and measured as the slice is; the output
+               must equal a numpy evaluation of the same chain.
+  5. reference - the Dense chain [16, 32, 8] and the Dense -> Requant ->
+               ReLU chain [4, 16, 16, 3] proved on the card must equal the
+               JAX package's proofs frozen in tests/torch_reference.json.
 Then the kernel table line and, last, the device line. Any failure raises
 and exits non-zero; without a CUDA device it exits 2 and prints no result.
 """
@@ -55,6 +60,9 @@ MULS_PER_PAIR = 2 * (8 * 8 * 4 + 22 * (4 + 8))
 INT32_MULS_PER_MUL = 8
 BYTES_PER_PAIR = 12 * 8
 WARM_RUNS = 3  # warm setup/prove/verify repeats after the cold run; medians reported
+DEVICE = "cuda"  # where the paths run (a test harness may point it elsewhere)
+PCS_KW = dict(num_queries=200, basecode_msg_size_log=7)  # the reference's parameters
+MLP_4M_DIMS = [4, 1024, 1024, 1024, 1024, 1024, 3]  # bench.py:164 build_mlp_4m
 KERNEL = "compress_level_kernel"
 TIMED_PAIRS = 1 << 19  # the main path's largest level (the 2^21-leaf weight tree's first)
 
@@ -266,35 +274,42 @@ def count_field_elements(obj) -> int:
     return 1 if isinstance(obj, int) else 0
 
 
-def phase_slice():
+def numpy_mlp(layers, x_np, specs):
+    """The Dense -> Requant -> ReLU chain evaluated with numpy int64."""
+    from deepprove_tpu_torch.zkml import quantization as Q
+
+    v = x_np
+    for (w, b), s in zip(layers, specs):
+        v = w @ v + b
+        v = (v * s.fixed_point_multiplier + (1 << (s.shift - 1))) >> s.shift
+        v = np.maximum(np.clip(v, Q.MIN, Q.MAX), 0)
+    return v
+
+
+def drive(name, model, x_np, want, pcs_kw, warm_runs):
+    """The main path once (Model.run -> Context.generate -> Prover.prove ->
+    verify) with the kernel's launch count set to 0 just before it, the
+    verifier rejecting a changed output, then `warm_runs` warm repeats."""
     from deepprove_tpu_torch.fields import gf
     from deepprove_tpu_torch.hashing import poseidon2_cuda as pc
     from deepprove_tpu_torch.transcript import BasicTranscript
     from deepprove_tpu_torch.transcript.session import DeviceTranscript
-    from deepprove_tpu_torch.zkml.convert import dense_chain_from_arrays
     from deepprove_tpu_torch.zkml.iop import IO, Context, Prover, verify
     from deepprove_tpu_torch.zkml.tensor import Tensor
 
-    dims = [4, 1024, 1024, 3]
-    pcs_kw = dict(num_queries=200, basecode_msg_size_log=7)
-    layers, x_np = build_chain(dims, 0)
-    model = dense_chain_from_arrays(layers, "cuda")
     x = Tensor(torch.from_numpy(x_np))
-
-    # the main path, once, with the launch count set to 0 just before it
+    torch.cuda.reset_peak_memory_stats()
     pc.LAUNCHES = 0
-    run_ms, trace = wall_ms(lambda: model.run([x], "cuda"))
-    want = x_np
-    for w, b in layers:
-        want = w @ want + b
-    assert np.array_equal(trace.outputs[0].data.cpu().numpy()[: dims[-1]], want)
-    cold_setup_ms, ctx = wall_ms(lambda: Context.generate(model, device="cuda", **pcs_kw))
+    run_ms, trace = wall_ms(lambda: model.run([x], DEVICE))
+    got = trace.outputs[0].data.cpu().numpy()
+    assert np.array_equal(got[: len(want)], want), "inference differs from numpy"
+    cold_setup_ms, ctx = wall_ms(lambda: Context.generate(model, device=DEVICE, **pcs_kw))
     launches_setup = pc.LAUNCHES
-    prover = Prover(ctx, BasicTranscript(b"m2vec"), device="cuda")
+    prover = Prover(ctx, BasicTranscript(b"m2vec"), device=DEVICE)
     cold_prove_ms, proof = wall_ms(lambda: prover.prove(trace))
     launches_prove = pc.LAUNCHES - launches_setup
     cold_verify_ms, _ = wall_ms(
-        lambda: verify(ctx, proof, IO([x], trace.outputs), BasicTranscript(b"m2vec"), device="cuda")
+        lambda: verify(ctx, proof, IO([x], trace.outputs), BasicTranscript(b"m2vec"), device=DEVICE)
     )
     launches = pc.LAUNCHES
     launches_verify = launches - launches_setup - launches_prove
@@ -304,34 +319,33 @@ def phase_slice():
     bad = trace.outputs[0].data.clone()
     bad[0] += 1
     try:
-        verify(ctx, proof, IO([x], [Tensor(bad)]), BasicTranscript(b"m2vec"), device="cuda")
+        verify(ctx, proof, IO([x], [Tensor(bad)]), BasicTranscript(b"m2vec"), device=DEVICE)
     except AssertionError:
         pass  # the expected rejection
     else:
         raise AssertionError("verify accepted a changed output")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     warm = {"setup_ms": [], "prove_ms": [], "verify_ms": []}
-    for _ in range(WARM_RUNS):
-        ms, ctx = wall_ms(lambda: Context.generate(model, device="cuda", **pcs_kw))
+    for _ in range(warm_runs):
+        ms, ctx = wall_ms(lambda: Context.generate(model, device=DEVICE, **pcs_kw))
         warm["setup_ms"].append(ms)
-        prover = Prover(ctx, BasicTranscript(b"m2vec"), device="cuda")
-        ms, proof = wall_ms(lambda: prover.prove(trace))
+        ms, proof = wall_ms(lambda: Prover(ctx, BasicTranscript(b"m2vec"), device=DEVICE).prove(trace))
         warm["prove_ms"].append(ms)
         ms, _ = wall_ms(
-            lambda: verify(ctx, proof, IO([x], trace.outputs), BasicTranscript(b"m2vec"), device="cuda")
+            lambda: verify(ctx, proof, IO([x], trace.outputs), BasicTranscript(b"m2vec"), device=DEVICE)
         )
         warm["verify_ms"].append(ms)
 
     # what holding the sponge on the host costs: per-copy times on an idle
     # card, times the copies one prove made
-    dt = DeviceTranscript.from_host(BasicTranscript(b"probe"), "cuda")
-    msg = gf.ext_from_pairs([(1, 2), (3, 4), (5, 6)], "cuda")
+    dt = DeviceTranscript.from_host(BasicTranscript(b"probe"), DEVICE)
+    msg = gf.ext_from_pairs([(1, 2), (3, 4), (5, 6)], DEVICE)
     pull_ms, _ = wall_ms(lambda: [dt.append_exts(msg) for _ in range(200)])
     push_ms, _ = wall_ms(lambda: [dt.read_challenge() for _ in range(200)])
     pull_ms, push_ms = pull_ms / 200, push_ms / 200
     result = {
-        "phase": "slice", "ok": True, "dims": dims, **pcs_kw,
-        "inference_ms": run_ms,
+        "phase": name, "ok": True, **pcs_kw, "inference_ms": run_ms,
         **{k: float(np.median(v)) for k, v in warm.items()},
         "warm_runs": warm, "cold_setup_ms": cold_setup_ms,
         "cold_prove_ms": cold_prove_ms, "cold_verify_ms": cold_verify_ms,
@@ -341,32 +355,74 @@ def phase_slice():
         "transcript_pulls": prover.dt.pulls, "transcript_pushes": prover.dt.pushes,
         "pull_ms": pull_ms, "push_ms": push_ms,
         "transcript_copy_ms": prover.dt.pulls * pull_ms + prover.dt.pushes * push_ms,
-        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "peak_mem_gib": peak_gib,
+    }
+    return result
+
+
+def phase_slice():
+    """The Dense-only chain [4, 1024, 1024, 3] (no lookups)."""
+    from deepprove_tpu_torch.zkml.convert import dense_chain_from_arrays
+
+    dims = [4, 1024, 1024, 3]
+    layers, x_np = build_chain(dims, 0)
+    want = x_np
+    for w, b in layers:
+        want = w @ want + b
+    model = dense_chain_from_arrays(layers, DEVICE)
+    result = {**drive("slice", model, x_np, want, PCS_KW, WARM_RUNS), "dims": dims}
+    emit(result)
+    return result
+
+
+def phase_mlp_4m():
+    """Dense-4M exactly as bench.py's build_mlp_4m builds it: six Dense ->
+    Requant -> ReLU blocks at width 1024, weights from default_rng(0)."""
+    from deepprove_tpu_torch.zkml.convert import mlp_chain_from_arrays
+
+    layers, x_np = build_chain(MLP_4M_DIMS, 0)
+    model = mlp_chain_from_arrays(layers, device=DEVICE)
+    specs = [model.nodes[i].op.spec for i in range(1, len(model.nodes), 3)]
+    result = {
+        **drive("mlp_4m", model, x_np, numpy_mlp(layers, x_np, specs), PCS_KW, WARM_RUNS),
+        "dims": MLP_4M_DIMS, "clamping_sizes": sorted({s.clamping_size() for s in specs}),
     }
     emit(result)
     return result
 
 
 def phase_reference():
+    """The Dense chain and the Dense -> Requant -> ReLU chain of the CPU
+    tests, proved on the card: each proof must equal the JAX package's."""
     import torch_reference as R
 
     from deepprove_tpu_torch.transcript import BasicTranscript
-    from deepprove_tpu_torch.zkml.convert import dense_chain_from_arrays
+    from deepprove_tpu_torch.zkml.convert import dense_chain_from_arrays, mlp_chain_from_arrays
     from deepprove_tpu_torch.zkml.iop import IO, Context, Prover, verify
     from deepprove_tpu_torch.zkml.tensor import Tensor
 
-    ref = R.load()["dense"]
-    layers, x_np = R.dense_inputs()
-    model = dense_chain_from_arrays(layers, "cuda")
-    x = Tensor(torch.from_numpy(x_np))
-    trace = model.run([x], "cuda")
-    ctx = Context.generate(model, device="cuda", **R.DENSE_KW)
-    proof = Prover(ctx, BasicTranscript(b"m2vec"), device="cuda").prove(trace)
-    verify(ctx, proof, IO([x], trace.outputs), BasicTranscript(b"m2vec"), device="cuda")
-    same = R.plain({"steps": proof.steps, "commit": proof.commit}) == ref["proof"]
-    emit({"phase": "reference", "ok": same, "dims": R.DENSE_DIMS, "equal_to_jax_proof": same})
-    if not same:
-        raise AssertionError("the card's proof differs from the JAX package's")
+    ref = R.load()
+    cases = {
+        "dense": (R.dense_inputs, lambda layers: dense_chain_from_arrays(layers, DEVICE),
+                  R.DENSE_KW, ("steps", "commit")),
+        "mlp": (R.mlp_inputs, lambda layers: mlp_chain_from_arrays(layers, ref["mlp"]["specs"], DEVICE),
+                R.MLP_KW, ("steps", "table_proofs", "shared_logup", "commit")),
+    }
+    equal = {}
+    for name, (inputs, build, kw, parts) in cases.items():
+        layers, x_np = inputs()
+        model = build(layers)
+        x = Tensor(torch.from_numpy(x_np))
+        trace = model.run([x], DEVICE)
+        ctx = Context.generate(model, device=DEVICE, **kw)
+        proof = Prover(ctx, BasicTranscript(b"m2vec"), device=DEVICE).prove(trace)
+        verify(ctx, proof, IO([x], trace.outputs), BasicTranscript(b"m2vec"), device=DEVICE)
+        equal[name] = {p: R.plain(getattr(proof, p)) for p in parts} == ref[name]["proof"]
+    ok = all(equal.values())
+    emit({"phase": "reference", "ok": ok, "dims": {"dense": R.DENSE_DIMS, "mlp": R.MLP_DIMS},
+          "equal_to_jax_proof": equal})
+    if not ok:
+        raise AssertionError(f"the card's proofs differ from the JAX package's: {equal}")
 
 
 def main() -> int:
@@ -376,13 +432,16 @@ def main() -> int:
     card, stats = phase_build()
     k = phase_kernels(stats["threads_per_block"])
     s = phase_slice()
+    m = phase_mlp_4m()
     phase_reference()
     emit({"kernels": [{
         "name": "poseidon2_compress_level",
         "route": "cuda",
         "source": "deepprove_tpu_torch/csrc/poseidon2_compress.cu",
         "replaces": "deepprove_tpu/hashing/poseidon2_pallas.py:142",
-        "launches": s["launches"],
+        "launches": m["launches"],
+        "launches_by_path": {p["phase"]: [p["launches_setup"], p["launches_prove"], p["launches_verify"]]
+                             for p in (s, m)},
         "max_abs_err": k["max_abs_err"],
         "ms": k["kernel_ms"],
         "plain_ms": k["plain_ms"],

@@ -198,6 +198,23 @@ def ext_from_base(x: int):
     return (x % P, 0)
 
 
+def ext_powers(a, k: int) -> list:
+    """[1, a, a^2, ..., a^(k-1)]."""
+    out = [(1, 0)]
+    for _ in range(1, k):
+        out.append(ext_mul(out[-1], a))
+    return out[:k]
+
+
+def ext_eq_eval(x, y):
+    """eq(x, y) = prod_i (2 x_i y_i + 1 - x_i - y_i) of two ext points."""
+    acc = (1, 0)
+    for xi, yi in zip(x, y, strict=True):
+        xy = ext_mul(xi, yi)
+        acc = ext_mul(acc, ext_add(ext_add(xy, xy), ext_sub((1, 0), ext_add(xi, yi))))
+    return acc
+
+
 # vectorized ext ops over (..., 2)-last-axis uint64 arrays
 def ext_arr(a0, a1=None):
     if a1 is None:

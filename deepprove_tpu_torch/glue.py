@@ -31,6 +31,12 @@ def at(arr: GF2, i: int) -> GF2:
     return arr[i]
 
 
+def take(arr: GF2, idxs) -> GF2:
+    """arr[idxs] for a GF2 (m,) array and a list of indices."""
+    ii = torch.tensor(list(idxs), dtype=torch.int64, device=arr.device)
+    return GF2(arr.a0[ii], arr.a1[ii])
+
+
 def concat_points(parts) -> GF2:
     """Concatenate point arrays (n,) and scalars () into one (n,) array."""
     return gf.ext_concatenate([p.reshape(1) if p.ndim == 0 else p for p in parts])

@@ -112,6 +112,7 @@ class BasefoldCommitment:
 
     root: Digest
     num_vars: int
+    num_polys: int = 1  # always 1 here; kept so proofs lower as the JAX package's do
     is_trivial: bool = False
 
 
@@ -394,16 +395,6 @@ def _encode_final_message_host(params: BasefoldParams, final_message: list[ExtPa
     return [(int(a), int(b)) for a, b in cw]
 
 
-def _eq_eval_host(x: list[ExtPair], y: list[ExtPair]) -> ExtPair:
-    acc = (1, 0)
-    for xi, yi in zip(x, y, strict=True):
-        xy = host.ext_mul(xi, yi)
-        acc = host.ext_mul(
-            acc, host.ext_add(host.ext_add(xy, xy), host.ext_sub((1, 0), host.ext_add(xi, yi)))
-        )
-    return acc
-
-
 def _eq_table_host(point: list[ExtPair]) -> list[ExtPair]:
     table = [(1, 0)]
     for r in point:
@@ -554,7 +545,7 @@ def _check_final(params, proof, fold_challenges, point, num_vars):
             _deg2_zero_plus_one(proof.sumcheck_messages[i + 1])
         ), f"sumcheck chain round {i}"
     num_rounds = len(fold_challenges)
-    coeff = _eq_eval_host(point[num_vars - num_rounds :], list(reversed(fold_challenges)))
+    coeff = host.ext_eq_eval(point[num_vars - num_rounds :], list(reversed(fold_challenges)))
     eq_low = _eq_table_host(point[: num_vars - num_rounds])
     total = (0, 0)
     for m, e in zip(proof.final_message, eq_low, strict=True):
@@ -745,7 +736,7 @@ def batch_verify(params, commitments, points, evals, proof, transcript, device="
     coeffs = [(0, 0)] * len(commitments)
     for i, ev in enumerate(evals):
         n_pt = len(points[ev.point])
-        e = _eq_eval_host(challenges[:n_pt], points[ev.point])
+        e = host.ext_eq_eval(challenges[:n_pt], points[ev.point])
         coeffs[ev.poly] = host.ext_add(coeffs[ev.poly], host.ext_mul(e, eq_t[i]))
 
     fold_challenges = _check_commit_rounds(params, proof, transcript, num_vars)

@@ -19,7 +19,7 @@ def _is_ext(values) -> bool:
     return isinstance(values, GF2)
 
 
-def _fold(lo, hi, r: GF2) -> GF2:
+def fold(lo, hi, r: GF2) -> GF2:
     """lo + r * (hi - lo) for base or ext lo/hi."""
     if _is_ext(lo):
         return gf.ext_add(lo, gf.ext_mul(r, gf.ext_sub(hi, lo)))
@@ -28,13 +28,13 @@ def _fold(lo, hi, r: GF2) -> GF2:
 
 def fix_variable(values, r: GF2) -> GF2:
     """Bind the lowest variable to r: length 2^n -> GF2 of length 2^(n-1)."""
-    return _fold(values[0::2], values[1::2], r)
+    return fold(values[0::2], values[1::2], r)
 
 
 def fix_high_variable(values, r: GF2) -> GF2:
     """Bind the highest variable to r."""
     half = values.shape[0] // 2
-    return _fold(values[:half], values[half:], r)
+    return fold(values[:half], values[half:], r)
 
 
 def fix_low_variables(values, point: GF2):

@@ -7,17 +7,21 @@ then per round absorb the message evaluations at t = 0..max_degree and
 squeeze a b"Internal round" challenge. Each round folds the previous
 challenge into every MLE and computes the message on the device; the
 session transcript copies the message down and hands the challenge back.
-Products of lower degree than max_degree need no padding: a missing
-factor is a factor of one. The messages equal the JAX prover's.
+The MLEs fold as one stacked (m, 2^n) array and a round gathers every
+product's factors from it at once, so its launches do not grow with the
+number of products (a logup level has three an instance). A product of
+lower degree than max_degree takes a row of ones for its missing factors.
+The messages equal the JAX prover's.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from ..fields import gf
 from ..fields.gf import GF2
-from ..poly import mle as mle_mod
 
 ExtPair = tuple[int, int]
 
@@ -27,11 +31,14 @@ ROUND_LABEL = b"Internal round"
 @dataclasses.dataclass
 class VirtualPolynomial:
     """sum_i coeff_i * prod_j mles[idx_ij] over {0,1}^num_vars; a coeff is
-    a host pair or a device GF2 ()."""
+    a host pair or a device GF2 (). `coeffs_dev`, when set, is a device
+    GF2 (num products,) that replaces the products' own coefficients."""
 
     num_vars: int
     mles: list
     products: list
+    num_mles: int = 0
+    coeffs_dev: GF2 | None = None
 
     @property
     def max_degree(self) -> int:
@@ -47,8 +54,17 @@ class VirtualPolynomial:
         return VirtualPolynomial(num_vars=num_vars, mles=[], products=[])
 
     def add_mle(self, values) -> int:
-        self.mles.append(values)
-        return len(self.mles) - 1
+        """One MLE (length 2^num_vars, base or GF2); returns its index."""
+        self.mles.append(values.reshape(1, -1))
+        self.num_mles += 1
+        return self.num_mles - 1
+
+    def add_mle_rows(self, rows) -> int:
+        """Several MLEs given as the rows of one (k, 2^num_vars) array;
+        returns the index of the first (the rest follow in row order)."""
+        self.mles.append(rows)
+        self.num_mles += rows.shape[0]
+        return self.num_mles - rows.shape[0]
 
 
 @dataclasses.dataclass
@@ -65,26 +81,71 @@ class ProverOutput:
     final_evals: object  # GF2 (num mles,): each MLE fully folded
 
 
-def _round_message(mles: list, products, coeffs: list, degree: int) -> GF2:
-    lo = [m[0::2] for m in mles]
-    hi = [m[1::2] for m in mles]
-    diff = [gf.ext_sub(h, l) for h, l in zip(hi, lo)] if degree >= 2 else None
+# factor rows a round gathers at once; bounds the temporaries of the first
+# rounds of a wide sumcheck (the batch opening's 2^20-entry MLEs)
+_GATHER_ELEMS = 1 << 22
+
+
+def _stacked(vp: VirtualPolynomial, degree: int):
+    """All MLEs as one GF2 (m, 2^n) array, plus a row of ones when a product
+    has fewer than `degree` factors (the missing factors point at it)."""
+    rows = [gf.to_ext(m) for m in vp.mles]
+    if any(len(f) < degree for _, f in vp.products):
+        rows.append(gf.ext_ones((1, rows[0].shape[1]), rows[0].device))
+    return gf.ext_concatenate(rows) if len(rows) > 1 else rows[0]
+
+
+def _coeffs(vp: VirtualPolynomial, device) -> GF2:
+    if vp.coeffs_dev is not None:
+        return vp.coeffs_dev
+    cs = [c for c, _ in vp.products]
+    if all(not isinstance(c, GF2) for c in cs):
+        return gf.ext_from_pairs(cs, device)
+    return gf.ext_stack([c if isinstance(c, GF2) else gf.ext_scalar(c, device) for c in cs])
+
+
+def _factor_index(vp: VirtualPolynomial, degree: int, device) -> torch.Tensor:
+    ones = vp.num_mles
+    return torch.tensor(
+        [list(f) + [ones] * (degree - len(f)) for _, f in vp.products],
+        dtype=torch.int64, device=device,
+    )
+
+
+def _products_sum(cur: GF2, idx: torch.Tensor, coeffs: GF2) -> GF2:
+    """sum_p coeffs[p] * sum_x prod_j cur[idx[p, j], x], in chunks of products."""
+    n_prod, degree = idx.shape
+    chunk = max(1, _GATHER_ELEMS // max(1, degree * cur.shape[1]))
+    total = None
+    for s in range(0, n_prod, chunk):
+        ii = idx[s : s + chunk]
+        f = GF2(cur.a0[ii], cur.a1[ii])  # (chunk, degree, L)
+        p = f[:, 0]
+        for j in range(1, degree):
+            p = gf.ext_mul(p, f[:, j])
+        part = gf.ext_sum_axis(gf.ext_mul(coeffs[s : s + chunk], gf.ext_sum_axis(p, 1)), 0)
+        total = part if total is None else gf.ext_add(total, part)
+    return total
+
+
+def _round_message(stacked: GF2, idx: torch.Tensor, coeffs: GF2, degree: int) -> GF2:
+    lo, hi = stacked[:, 0::2], stacked[:, 1::2]
+    diff = gf.ext_sub(hi, lo) if degree >= 2 else None
     evals = []
     cur = lo
     for t in range(degree + 1):
         if t == 1:
             cur = hi
         elif t >= 2:
-            cur = [gf.ext_add(c, d) for c, d in zip(cur, diff)]
-        total = None
-        for coeff, (_, factors) in zip(coeffs, products):
-            p = cur[factors[0]]
-            for f in factors[1:]:
-                p = gf.ext_mul(p, cur[f])
-            term = gf.ext_mul(coeff, gf.ext_sum_axis(p, 0))
-            total = term if total is None else gf.ext_add(total, term)
-        evals.append(total)
+            cur = gf.ext_add(cur, diff)
+        evals.append(_products_sum(cur, idx, coeffs))
     return gf.ext_stack(evals)
+
+
+def _fold_rows(stacked: GF2, r: GF2) -> GF2:
+    """Bind the lowest variable of every row to r."""
+    lo, hi = stacked[:, 0::2], stacked[:, 1::2]
+    return gf.ext_add(lo, gf.ext_mul(r, gf.ext_sub(hi, lo)))
 
 
 def prove_device(vp: VirtualPolynomial, dt) -> ProverOutput:
@@ -94,23 +155,24 @@ def prove_device(vp: VirtualPolynomial, dt) -> ProverOutput:
     n = vp.num_vars
     degree = vp.max_degree
     dt.append_constants([n, degree])
-    mles = [gf.to_ext(m) for m in vp.mles]
-    coeffs = [c if isinstance(c, GF2) else gf.ext_scalar(c, device) for c, _ in vp.products]
+    stacked = _stacked(vp, degree)
+    idx = _factor_index(vp, degree, device)
+    coeffs = _coeffs(vp, device)
     msgs, point = [], []
     for rnd in range(n):
         if rnd:
-            mles = [mle_mod.fix_variable(m, point[-1]) for m in mles]
-        msg = _round_message(mles, vp.products, coeffs, degree)
+            stacked = _fold_rows(stacked, point[-1])
+        msg = _round_message(stacked, idx, coeffs, degree)
         dt.append_exts(msg)
         msgs.append(msg)
         point.append(dt.get_and_append_challenge(ROUND_LABEL))
     if n:
-        mles = [mle_mod.fix_variable(m, point[-1]) for m in mles]
+        stacked = _fold_rows(stacked, point[-1])
         proof = SumcheckProof(point=gf.ext_stack(point), round_messages=gf.ext_stack(msgs))
     else:
         empty = gf.ext_zeros((0,), device)
         proof = SumcheckProof(point=empty, round_messages=gf.ext_zeros((0, degree + 1), device))
-    finals = gf.ext_stack([m.reshape(()) for m in mles])
+    finals = stacked[: vp.num_mles].reshape(-1)
     return ProverOutput(proof=proof, final_evals=finals)
 
 

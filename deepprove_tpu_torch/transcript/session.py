@@ -70,22 +70,24 @@ class DeviceTranscript:
             out.append(self.challenger.sample_ext())
         return out
 
-    def _to_device(self, pairs) -> gf.GF2:
+    def push(self, pairs) -> gf.GF2:
+        """Host ext pairs (challenges or values computed from them) as one
+        device GF2 (k,) array, counted as one copy."""
         self.pushes += 1
         return gf.ext_from_pairs(pairs, self.device)
 
     def read_challenge(self) -> gf.GF2:
-        return self._to_device(self.challenge_pairs(1)).reshape(())
+        return self.push(self.challenge_pairs(1)).reshape(())
 
     def read_challenges(self, k: int) -> gf.GF2:
         """k challenges as ONE device GF2 (k,) array."""
-        return self._to_device(self.challenge_pairs(k))
+        return self.push(self.challenge_pairs(k))
 
     def get_and_append_challenge(self, label: bytes) -> gf.GF2:
-        return self._to_device(self.challenge_pairs(1, label)).reshape(())
+        return self.push(self.challenge_pairs(1, label)).reshape(())
 
     def get_and_append_challenges(self, label: bytes, k: int):
         """k x (label, squeeze); returns GF2 (k,) (None if k == 0)."""
         if k == 0:
             return None
-        return self._to_device(self.challenge_pairs(k, label))
+        return self.push(self.challenge_pairs(k, label))

@@ -1,3 +1,3 @@
-from . import model, quantization, tensor
+from . import lookup_context, model, quantization, tensor
 
-__all__ = ["model", "quantization", "tensor"]
+__all__ = ["lookup_context", "model", "quantization", "tensor"]

@@ -1,24 +1,32 @@
 """Claim accumulation -> batched Basefold opening.
 
 As in the JAX package's `zkml/commit.py`: `CommitmentContext` commits every
-model weight poly at setup; `CommitmentProver` collects claims during the
+model weight poly (and committed table columns) at setup and the lookup
+witness columns at prove time; `CommitmentProver` collects claims during the
 backward proving pass, splits trivial (<= basecode vars) from batched, and
-emits one batch opening; `CommitmentVerifier` mirrors it. Same-poly claim
-merging (for fan-out) arrives with the slices whose models need it.
+emits one batch opening; `CommitmentVerifier` mirrors it. `same_poly_*`
+binds k claims on one polynomial into one with a beta-RLC sumcheck.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+from .. import glue
+from ..fields import gf, host
 from ..lookup.logup import Claim
 from ..pcs import basefold
+from ..poly import mle as mle_mod
+from ..sumcheck import VirtualPolynomial, prove_device
+from ..sumcheck import verify as sumcheck_verify
+
+ExtPair = tuple[int, int]
 
 
 class CommitmentContext:
-    """Params + commitments for the model polys."""
+    """Params + commitments for the model polys and committed table columns."""
 
-    def __init__(self, max_poly_len: int, model_polys, **pcs_kw):
+    def __init__(self, max_poly_len: int, model_polys, table_types=(), **pcs_kw):
         """model_polys: {node_id: {poly_id: field tensor}} (little-endian)."""
         for polys in model_polys.values():
             for p in polys.values():
@@ -30,6 +38,11 @@ class CommitmentContext:
                 pid: (basefold.commit(self.params, poly), poly)
                 for pid, poly in sorted(model_polys[node_id].items())
             }
+        self.table_comms = {}
+        for tt in sorted(table_types):
+            cols = tt.committed_columns()
+            if cols is not None:
+                self.table_comms[tt] = (basefold.commit(self.params, cols), cols)
 
     @property
     def trivial_num_vars(self) -> int:
@@ -40,6 +53,12 @@ class CommitmentContext:
             for pid in sorted(self.model_comms[node_id]):
                 comm, _ = self.model_comms[node_id][pid]
                 basefold.write_commitment(comm.commitment, transcript)
+        for tt in sorted(self.table_comms):
+            basefold.write_commitment(self.table_comms[tt][0].commitment, transcript)
+
+    def commit(self, evals):
+        """A prove-time (witness) commitment at the context's parameters."""
+        return basefold.commit(self.params, evals)
 
 
 @dataclasses.dataclass
@@ -67,6 +86,9 @@ class CommitmentProver:
         """Model-poly claims keyed by poly id, added in sorted-id order."""
         for pid, (comm, poly) in self.ctx.model_comms[node_id].items():
             self.add_witness_claim((comm, poly), claims[pid])
+
+    def add_table_claim(self, table_type, claim):
+        self.add_witness_claim(self.ctx.table_comms[table_type], claim)
 
     def prove(self, dt):
         """Open all accumulated claims against the session transcript."""
@@ -111,6 +133,9 @@ class CommitmentVerifier:
         for pid, (comm, _) in self.ctx.model_comms[node_id].items():
             self.add_witness_claim(comm.commitment, claims[pid])
 
+    def add_table_claim(self, table_type, claim: Claim):
+        self.add_witness_claim(self.ctx.table_comms[table_type][0].commitment, claim)
+
     def verify(self, proof, transcript, device):
         params = self.ctx.params
         assert len(proof["trivial"]) == len(self.trivial), "trivial proof count"
@@ -133,3 +158,47 @@ class CommitmentVerifier:
             transcript,
             device,
         )
+
+
+# ---------------------------------------------------------------------------
+# same-poly claim aggregation
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class SamePolyProof:
+    sumcheck: object  # SumcheckProof
+    evals: object  # GF2 (2,): [beta eval, poly eval]; host [pairs]
+
+    def extract_claim(self) -> glue.DevClaim:
+        """The merged claim on the polynomial (prover side, device values)."""
+        return glue.DevClaim(point=self.sumcheck.point, eval=self.evals[1])
+
+
+def same_poly_prove_device(poly, claims, dt) -> SamePolyProof:
+    """sum_x beta(x) f(x) = sum_i a_i y_i for fresh challenges a_i, with
+    beta = sum_i a_i eq(x, r_i) (claims: DevClaims on `poly`)."""
+    chals = dt.read_challenges(len(claims))
+    beta = None
+    for i, c in enumerate(claims):
+        t = mle_mod.eq_table(c.point, scale=chals[i])
+        beta = t if beta is None else gf.ext_add(beta, t)
+    vp = VirtualPolynomial.new(poly.shape[0].bit_length() - 1)
+    vp.add_product((1, 0), [vp.add_mle(beta), vp.add_mle(poly)])
+    out = prove_device(vp, dt)
+    return SamePolyProof(sumcheck=out.proof, evals=out.final_evals)
+
+
+def same_poly_verify(proof: SamePolyProof, claims: list[Claim], num_vars: int, transcript) -> Claim:
+    challenges = [transcript.read_challenge() for _ in range(len(claims))]
+    y = (0, 0)
+    for a, c in zip(challenges, claims):
+        y = host.ext_add(y, host.ext_mul(a, c.eval))
+    sub = sumcheck_verify(y, proof.sumcheck.round_messages, num_vars, 2, transcript)
+    beta_eval = (0, 0)
+    for a, c in zip(challenges, claims):
+        beta_eval = host.ext_add(beta_eval, host.ext_mul(a, host.ext_eq_eval(c.point, sub.point)))
+    got = host.ext_mul(beta_eval, proof.evals[1])
+    assert got == sub.expected_evaluation, "same-poly final check"
+    return Claim(point=list(sub.point), eval=proof.evals[1])
+

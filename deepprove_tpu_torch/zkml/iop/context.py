@@ -1,8 +1,8 @@
-"""Proving context: per-node layer contexts + commitments.
+"""Proving context: per-node layer contexts, lookup tables + commitments.
 
 `Context.generate` walks the model forward, calling each op's `step_info`
-to build its verifier-side layer context and register its polynomials,
-then commits them on the chosen device.
+to build its verifier-side layer context and register its lookup tables
+and polynomials, then commits them on the chosen device.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ import dataclasses
 from ... import device as device_mod
 from ..commit import CommitmentContext
 from ..model import Model
+from ..tensor import next_pow2
 
 
 @dataclasses.dataclass
@@ -29,9 +30,10 @@ class NodeCtx:
 
 
 class Context:
-    def __init__(self, model: Model, steps_info, commitment_ctx, device):
+    def __init__(self, model: Model, steps_info, lookup, commitment_ctx, device):
         self.model = model
         self.steps_info = steps_info  # NodeId -> NodeCtx
+        self.lookup = lookup  # sorted list of TableType
         self.commitment_ctx = commitment_ctx
         self.device = device
 
@@ -45,16 +47,16 @@ class Context:
             steps_info[nid] = NodeCtx(
                 node_id=nid, op=node.op, ctx=node.op.step_info(nid, aux), inputs=node.inputs
             )
-        if aux.tables:
-            raise NotImplementedError(
-                "lookup tables (Requant, ReLU) need logup-GKR, which arrives with "
-                "the next slice of the port"
-            )
+        lookup = sorted(aux.tables)
+        max_len = 1
+        for tt in lookup:
+            max_len = max(max_len, 1 << tt.multiplicity_poly_vars())
         polys = {
             nid: {pid: p.to(dev) for pid, p in ps.items()}
             for nid, ps in aux.model_polys.items()
         }
-        return Context(model, steps_info, CommitmentContext(1, polys, **pcs_kw), dev)
+        commitment_ctx = CommitmentContext(next_pow2(max_len), polys, lookup, **pcs_kw)
+        return Context(model, steps_info, lookup, commitment_ctx, dev)
 
     def forward_order(self):
         return sorted(self.steps_info)

@@ -1,10 +1,13 @@
 """Model prover: the backward claim loop, as in the JAX package's
 `zkml/iop/prover.py`.
 
-Flow: absorb the context, derive output claims from Fiat-Shamir, walk the
-DAG backwards proving each node, then emit one batched Basefold opening
-for every accumulated claim. Claims and proof values stay on the device;
-the proof is lowered to host ints in one pull at the end.
+Flow: absorb the context; commit the lookup witnesses and multiplicities
+and derive the table challenges; prove every node's lookups in one logup
+proof per column size; derive output claims from Fiat-Shamir; walk the DAG
+backwards proving each node; prove the tables, one logup proof per table
+size; then emit one batched Basefold opening for every accumulated claim.
+Claims and proof values stay on the device; the proof is lowered to host
+ints in one pull at the end.
 """
 
 from __future__ import annotations
@@ -13,16 +16,45 @@ import dataclasses
 
 from ... import device as device_mod
 from ... import glue
+from ...lookup import logup
 from ...poly import mle as mle_mod
 from ...transcript.session import DeviceTranscript
 from ..commit import CommitmentProver
+from ..lookup_context import generate_lookup_witnesses
 from ..model import InferenceTrace
+
+
+@dataclasses.dataclass
+class TableProof:
+    """One logup proof of every table of one size; `table_types` and
+    `multiplicity_commits` are in instance order (sorted table order), the
+    claims per instance [multiplicity, col_0, ...]."""
+
+    table_types: list
+    multiplicity_commits: list  # BasefoldCommitment per table
+    lookup: object  # LogUpProof
+
+
+@dataclasses.dataclass
+class SharedLogUpGroup:
+    """One logup proof of many nodes' lookup instances of one column size.
+    `instances` lists (node_id, witness_idx, instance_idx, cols_per_instance)
+    in alpha-batching order; the verifier takes each instance's challenges
+    from the context's table layout, never from the proof."""
+
+    instances: list
+    proof: object  # LogUpProof
 
 
 @dataclasses.dataclass
 class Proof:
     steps: dict  # NodeId -> layer proof
-    commit: dict  # {"batch": ..., "trivial": [...]}
+    table_proofs: list = dataclasses.field(default_factory=list)
+    commit: dict = dataclasses.field(default_factory=dict)  # {"batch": ..., "trivial": [...]}
+    # fan-out claim merges: (node_id, wire) -> SamePolyProof (none in a chain)
+    merges: dict = dataclasses.field(default_factory=dict)
+    # the consolidated node-lookup proofs, by column size (ascending)
+    shared_logup: list = dataclasses.field(default_factory=list)
 
 
 class Prover:
@@ -34,14 +66,92 @@ class Prover:
         self.transcript = transcript
         self.commit_prover = CommitmentProver(ctx.commitment_ctx)
         self.proofs = {}
+        self.challenge_storage = None
+        self.lookup_witness = {}
+        self.table_witness = []
+        self.shared_logup_claims = {}
         self.dt = None
 
     def push_proof(self, node_id, proof):
         self.proofs[node_id] = proof
 
+    def lookup_witnesses_for(self, node_id):
+        return self.lookup_witness.pop(node_id)
+
+    def shared_claims_for(self, node_id, wit_idx):
+        """A witness's column claims from the consolidated lookup proof (all
+        at that group's point, in column order)."""
+        return self.shared_logup_claims[(node_id, wit_idx)]
+
+    def _prove_shared_logup(self) -> list:
+        """One grouped logup proof per column size, ascending; instances by
+        node id, witness index, then instance."""
+        groups = []
+        by_size = {}
+        for nid in sorted(self.lookup_witness):
+            if not getattr(self.ctx.steps_info[nid].op, "shared_logup", False):
+                continue
+            for wi, wit in enumerate(self.lookup_witness[nid]):
+                by_size.setdefault(int(wit.column_evals[0].shape[0]), []).append((nid, wi, wit))
+        for size in sorted(by_size):
+            instances, index = [], []
+            for nid, wi, wit in by_size[size]:
+                const_c, sep_c = self.challenge_storage.get(wit.table_type.name())
+                k = wit.columns_per_instance
+                for j in range(len(wit.column_evals) // k):
+                    instances.append((wit.column_evals[j * k : (j + 1) * k], const_c, sep_c))
+                    index.append((nid, wi, j, k))
+            proof = logup.batch_prove_grouped(instances, self.dt)
+            off = 0
+            for nid, wi, j, k in index:
+                self.shared_logup_claims.setdefault((nid, wi), []).extend(
+                    proof.output_claims[off : off + k]
+                )
+                off += k
+            groups.append(SharedLogUpGroup(instances=index, proof=proof))
+        return groups
+
+    def _prove_tables(self) -> list:
+        """One logup proof per table size, ascending: a lone table alone, equal
+        sizes grouped in sorted table order."""
+        groups = {}
+        for tw in self.table_witness:
+            groups.setdefault(int(tw.column_evals[0].shape[0]), []).append(tw)
+        table_proofs = []
+        for size in sorted(groups):
+            tws = groups[size]
+            if len(tws) == 1:
+                proof = logup.batch_prove_device(tws[0].get_logup_input(self.challenge_storage), self.dt)
+            else:
+                instances = [
+                    (tw.column_evals, tw.multiplicities, *self.challenge_storage.get(tw.table_type.name()))
+                    for tw in tws
+                ]
+                proof = logup.batch_prove_grouped_tables(instances, self.dt)
+            off, commits = 0, []
+            for tw in tws:
+                claims = proof.output_claims[off : off + 1 + len(tw.column_evals)]
+                comm, poly = tw.commits[0]
+                self.commit_prover.add_witness_claim((comm, poly), claims[0])
+                for claim in tw.table_type.table_claims(claims):
+                    self.commit_prover.add_table_claim(tw.table_type, claim)
+                commits.append(comm.commitment)
+                off += 1 + len(tw.column_evals)
+            table_proofs.append(
+                TableProof(table_types=[tw.table_type for tw in tws], multiplicity_commits=commits,
+                           lookup=proof)
+            )
+        return table_proofs
+
     def prove(self, trace: InferenceTrace) -> Proof:
         self.ctx.write_to_transcript(self.transcript)
         self.dt = DeviceTranscript.from_host(self.transcript, self.device)
+        if self.ctx.lookup:
+            storage, witnesses, table_witnesses = generate_lookup_witnesses(trace, self.ctx, self.dt)
+            self.challenge_storage = storage
+            self.lookup_witness = witnesses
+            self.table_witness = table_witnesses
+        shared_logup = self._prove_shared_logup()
 
         out_claims = []
         for out in trace.outputs:
@@ -57,15 +167,19 @@ class Prover:
                 claims = node_ctx.op.prove(nid, node_ctx.ctx, claims, trace.steps[nid], self)
             claims_by_layer[nid] = claims
 
-        proof = Proof(steps=self.proofs, commit=self.commit_prover.prove(self.dt))
+        table_proofs = self._prove_tables()
+        proof = Proof(
+            steps=self.proofs, table_proofs=table_proofs,
+            commit=self.commit_prover.prove(self.dt), shared_logup=shared_logup,
+        )
         self.dt.sync_to_host(self.transcript)
         return glue.materialize(proof)
 
 
 def claims_for_node(model, nid, claims_by_layer, out_claims, out_nodes):
     """One claim per output wire, from its consumer (or the model output).
-    A wire feeding several consumers needs same-poly merging, which this
-    slice of the port does not have."""
+    A wire feeding several consumers needs same-poly merging of its claims,
+    which no chain needs and this slice of the port does not do."""
     claims = []
     for w in range(model.num_outputs(nid)):
         cands = []

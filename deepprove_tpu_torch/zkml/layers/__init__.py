@@ -1,3 +1,3 @@
-from . import dense
+from . import activation, dense, requant
 
-__all__ = ["dense"]
+__all__ = ["activation", "dense", "requant"]

@@ -51,6 +51,10 @@ class Dense:
         # integer matmul as a product + row sum: CUDA has no int64 matmul
         return [Tensor((self.matrix * xp).sum(dim=1) + self.bias)]
 
+    def output_bitsize(self) -> int:
+        """2 (BIT_LEN - 1) + log2(cols) + 1: the bits an output can need."""
+        return 2 * (Q.BIT_LEN - 1) + ceil_log2(self.matrix.shape[1]) + 1
+
     # -- context ------------------------------------------------------------
     def step_info(self, node_id: int, aux):
         aux.model_polys[node_id] = {

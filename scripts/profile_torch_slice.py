@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
-"""Where one prove of the port's Dense-chain slice spends its time on a GPU.
+"""Where one prove of Dense-4M spends its time on a GPU.
 
     python3 scripts/profile_torch_slice.py
 
-Builds the chain [4, 1024, 1024, 3] as chip_smoke.py does, runs setup and a
-warm prove, then:
-  1. `components`: inclusive wall time and calls of the prove's main steps,
-     each wrapped (in this script only) with a device synchronize on entry
-     and exit, so queued device work is charged to the step that queued it;
+Builds Dense-4M (bench.py's build_mlp_4m: six Dense -> Requant -> ReLU
+blocks, dims [4, 1024, 1024, 1024, 1024, 1024, 3]) as chip_smoke.py's
+`mlp_4m` phase does, runs setup and a warm prove, then:
+  1. `components`: inclusive wall time and calls of the prove's main steps
+     (the lookup witnesses and their commits, the consolidated lookup
+     proofs, the table proofs, the Requant, ReLU and Dense proves, the
+     sumchecks, the commitment opening and its parts), each wrapped (in
+     this script only) with a device synchronize on entry and exit, so
+     queued device work is charged to the step that queued it;
   2. `profile`: one prove under torch.profiler (CUDA activity): kernel
      launches, summed kernel time, the device's busy share of an
      unprofiled warm prove, the kernels that take the most time, and the
@@ -145,42 +149,55 @@ def main() -> int:
         return 2
     import chip_smoke as cs
     from deepprove_tpu_torch import glue
+    from deepprove_tpu_torch.lookup import logup
     from deepprove_tpu_torch.pcs import basefold, merkle
     from deepprove_tpu_torch.sumcheck import prover as sc_prover
     from deepprove_tpu_torch.transcript import BasicTranscript
     from deepprove_tpu_torch.zkml import commit
-    from deepprove_tpu_torch.zkml.convert import dense_chain_from_arrays
+    from deepprove_tpu_torch.zkml.convert import mlp_chain_from_arrays
     from deepprove_tpu_torch.zkml.iop import Context, Prover
-    from deepprove_tpu_torch.zkml.layers import dense
+    from deepprove_tpu_torch.zkml.iop import prover as iop_prover
+    from deepprove_tpu_torch.zkml.layers import activation, dense, requant
     from deepprove_tpu_torch.zkml.tensor import Tensor
 
-    layers, x_np = cs.build_chain([4, 1024, 1024, 3], 0)
-    model = dense_chain_from_arrays(layers, "cuda")
+    layers, x_np = cs.build_chain(cs.MLP_4M_DIMS, 0)
+    model = mlp_chain_from_arrays(layers, device="cuda")
     trace = model.run([Tensor(torch.from_numpy(x_np))], "cuda")
-    ctx = Context.generate(model, device="cuda", num_queries=200, basecode_msg_size_log=7)
+    ctx = Context.generate(model, device="cuda", **cs.PCS_KW)
     Prover(ctx, BasicTranscript(b"m2vec"), device="cuda").prove(trace)
     warm_ms, _ = cs.wall_ms(lambda: Prover(ctx, BasicTranscript(b"m2vec"), device="cuda").prove(trace))
 
     table = collections.defaultdict(lambda: [0.0, 0])
     targets = [
+        (iop_prover, "generate_lookup_witnesses", "lookup_witnesses"),
+        (iop_prover.Prover, "_prove_shared_logup", "shared_logup"),
+        (iop_prover.Prover, "_prove_tables", "table_proofs"),
+        (requant.Requant, "prove", "requant_layer"),
+        (activation.Relu, "prove", "relu_layer"),
         (dense.Dense, "prove", "dense_layer"),
         (commit.CommitmentProver, "prove", "commit_open"),
         (sc_prover, "prove_device", "sumcheck"),
+        (basefold, "commit", "basefold_commit"),
         (basefold, "_commit_phase_session", "basefold_commit_phase"),
         (basefold, "_query_openings", "basefold_query_openings"),
         (merkle.MerkleTree, "from_leaves", "merkle_tree"),
         (glue, "materialize", "materialize"),
     ]
     originals = [(o, n, _wrap(o, n, table, k)) for o, n, k in targets]
-    dense.prove_device = sc_prover.prove_device  # bound by name at import
+    by_name = (dense, requant, logup, commit)  # modules that bound prove_device at import
+    for mod in by_name:
+        mod.prove_device = sc_prover.prove_device
     total_ms, _ = cs.wall_ms(lambda: Prover(ctx, BasicTranscript(b"m2vec"), device="cuda").prove(trace))
     for owner, name, raw in originals:
         setattr(owner, name, raw)
-    dense.prove_device = sc_prover.prove_device
+    for mod in by_name:
+        mod.prove_device = sc_prover.prove_device
     print(json.dumps({
-        "part": "components", "warm_prove_ms": warm_ms, "synced_prove_ms": total_ms,
+        "part": "components", "dims": cs.MLP_4M_DIMS, "warm_prove_ms": warm_ms,
+        "synced_prove_ms": total_ms,
         "inclusive_ms": {k: v[0] * 1e3 for k, v in table.items()},
         "calls": {k: v[1] for k, v in table.items()},
+        "card": cs.nvidia_smi("name,power.limit"),
     }), flush=True)
 
     from torch.profiler import ProfilerActivity, profile

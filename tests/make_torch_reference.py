@@ -8,9 +8,10 @@ spend. So this script computes them once, on the seeded numpy inputs of
 `tests/test_torch_reference.py` recomputes the whole file with the JAX
 package and checks that it is unchanged (`-m jax_reference`), and the
 sumcheck, the cheapest part, is recomputed live by
-`test_torch_sumcheck.py`. Regenerate after any change to those inputs:
+`test_torch_sumcheck.py`. Regenerate after any change to those inputs,
+the whole file or only the named top-level parts:
 
-    JAX_PLATFORMS=cpu python tests/make_torch_reference.py
+    JAX_PLATFORMS=cpu python tests/make_torch_reference.py [part ...]
 """
 
 from __future__ import annotations
@@ -26,13 +27,19 @@ jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import torch_reference as R  # noqa: E402
+from deepprove_tpu import glue  # noqa: E402
 from deepprove_tpu.fields import gf, host  # noqa: E402
+from deepprove_tpu.lookup import logup  # noqa: E402
 from deepprove_tpu.pcs import basefold  # noqa: E402
 from deepprove_tpu.sumcheck import VirtualPolynomial, prove  # noqa: E402
 from deepprove_tpu.transcript import BasicTranscript  # noqa: E402
+from deepprove_tpu.transcript.session import DeviceTranscript  # noqa: E402
 from deepprove_tpu.zkml.iop import Context, Prover, verify  # noqa: E402
 from deepprove_tpu.zkml.iop.verifier import IO  # noqa: E402
+from deepprove_tpu.zkml.layers.activation import Relu  # noqa: E402
 from deepprove_tpu.zkml.layers.dense import Dense  # noqa: E402
+from deepprove_tpu.zkml.layers.requant import Requant  # noqa: E402
+from deepprove_tpu.zkml.quantization import BIT_LEN, RequantSpec  # noqa: E402
 from deepprove_tpu.zkml.model import Model  # noqa: E402
 from deepprove_tpu.zkml.tensor import Tensor  # noqa: E402
 
@@ -80,16 +87,72 @@ def dense_reference() -> dict:
     }
 
 
-def generate() -> dict:
+def _logup_proof(p: dict):
+    cols = lambda cs: [gf.from_u64(c) for c in cs]  # noqa: E731
+    if p["kind"] == "lookup":
+        inp = logup.LogUpInput.new_lookup(cols(p["columns"]), p["const"], p["sep"], p["cpi"])
+        return logup.batch_prove(inp, BasicTranscript(p["label"]))
+    if p["kind"] == "table":
+        inp = logup.LogUpInput.new_table(cols(p["columns"]), gf.from_u64(p["mult"]), p["const"], p["sep"])
+        return logup.batch_prove(inp, BasicTranscript(p["label"]))
+    dt = DeviceTranscript.from_host(BasicTranscript(p["label"]))
+    if p["kind"] == "grouped_lookups":
+        proof = logup.batch_prove_grouped([(cols(c), k, s) for c, k, s in p["instances"]], dt)
+    else:
+        proof = logup.batch_prove_grouped_tables(
+            [(cols(c), gf.from_u64(m), k, s) for c, m, k, s in p["instances"]], dt
+        )
+    return glue.materialize(proof)
+
+
+def logup_reference(name: str) -> list:
+    """The JAX proofs of one logup case of `R.logup_case`."""
+    return [R.plain(_logup_proof(p)) for p in R.logup_case(name)]
+
+
+def mlp_reference() -> dict:
+    """bench.py's build_mlp_4m chain (Dense -> Requant -> ReLU a layer) at
+    R.MLP_DIMS, proved and verified with the JAX package."""
+    layers, x_np = R.mlp_inputs()
+    model = Model()
+    specs = []
+    for w, bias in layers:
+        d = Dense(matrix=w, bias=bias)
+        spec = RequantSpec.from_multiplier(1.0 / (1 << (BIT_LEN - 1)) / w.shape[1], d.output_bitsize())
+        model.add_chain(d)
+        model.add_chain(Requant(spec=spec))
+        model.add_chain(Relu())
+        specs.append({f: getattr(spec, f) for f in R.REQUANT_FIELDS})
+    x = Tensor(x_np)
+    trace = model.run([x])
+    ctx = Context.generate(model, **R.MLP_KW)
+    proof = Prover(ctx, BasicTranscript(b"m2vec")).prove(trace)
+    verify(ctx, proof, IO([x], trace.outputs), BasicTranscript(b"m2vec"))
+    assert not proof.merges
     return {
-        "sumcheck": sumcheck_reference(),
-        "basefold": {name: basefold_reference(name) for name in ("rs", "trivial")},
-        "dense": dense_reference(),
+        "output": R.plain(trace.outputs[0].data),
+        "specs": specs,
+        "proof": {k: R.plain(getattr(proof, k)) for k in ("steps", "table_proofs", "shared_logup", "commit")},
     }
 
 
+PARTS = {
+    "sumcheck": sumcheck_reference,
+    "basefold": lambda: {name: basefold_reference(name) for name in ("rs", "trivial")},
+    "dense": dense_reference,
+    "logup": lambda: {name: logup_reference(name) for name in R.LOGUP_CASES},
+    "mlp": mlp_reference,
+}
+
+
+def generate(parts=tuple(PARTS)) -> dict:
+    return {name: PARTS[name]() for name in parts}
+
+
 if __name__ == "__main__":
-    ref = generate()
+    parts = sys.argv[1:] or list(PARTS)
+    ref = R.load() if sys.argv[1:] else {}
+    ref.update(generate(parts))
     with open(R.REFERENCE_PATH, "w") as f:
         json.dump(ref, f, separators=(",", ":"))
     print(f"wrote {R.REFERENCE_PATH} ({os.path.getsize(R.REFERENCE_PATH)} bytes)")

@@ -73,21 +73,16 @@ def test_verifier_rejects_tampered_proof(proved):
         _verify(ctx, bad, x, trace.outputs)
 
 
-class _LookupOp:
-    """A layer that registers a lookup table, as Requant/ReLU do."""
+def test_lookup_tables_sort_into_the_context():
+    """Requant and ReLU register their tables; the context keeps them in
+    sorted order and sizes the PCS for their multiplicity polys."""
+    from deepprove_tpu_torch.zkml.layers.activation import Relu
+    from deepprove_tpu_torch.zkml.layers.requant import Requant
+    from deepprove_tpu_torch.zkml.quantization import RequantSpec
 
-    is_provable = True
-
-    def step_info(self, node_id, aux):
-        aux.tables.add("range")
-        return None
-
-    def evaluate(self, inputs):
-        return inputs
-
-
-def test_lookup_tables_are_not_in_this_slice():
     model = Model()
-    model.add_chain(_LookupOp())
-    with pytest.raises(NotImplementedError, match="logup"):
-        Context.generate(model, device="cpu")
+    model.add_chain(Requant(spec=RequantSpec.from_multiplier(1 / 128 / 4, 17)))
+    model.add_chain(Relu())
+    ctx = Context.generate(model, device="cpu", **R.DENSE_KW)
+    assert [t.name() for t in ctx.lookup] == ["Relu", "Range", "Clamping: 8"]
+    assert ctx.commitment_ctx.params.max_message_size_log == 8

@@ -48,7 +48,7 @@ def test_sources_do_not_import_jax_or_the_jax_package():
 
 def _entry_points():
     from deepprove_tpu_torch.transcript import BasicTranscript
-    from deepprove_tpu_torch.zkml.convert import dense_chain_from_arrays
+    from deepprove_tpu_torch.zkml.convert import dense_chain_from_arrays, mlp_chain_from_arrays
     from deepprove_tpu_torch.zkml.iop import IO, Context, Prover, verify
     from deepprove_tpu_torch.zkml.tensor import Tensor
 
@@ -58,6 +58,7 @@ def _entry_points():
     x = Tensor(torch.ones(2, dtype=torch.int64))
     return {
         "convert": lambda: dense_chain_from_arrays(layers),
+        "convert_mlp": lambda: mlp_chain_from_arrays(layers),
         "Model.run": lambda: model.run([x]),
         "Context.generate": lambda: Context.generate(model),
         "Prover": lambda: Prover(ctx, BasicTranscript(b"m2vec")),
@@ -66,7 +67,7 @@ def _entry_points():
 
 
 @pytest.mark.parametrize(
-    "name", ["convert", "Model.run", "Context.generate", "Prover", "verify"]
+    "name", ["convert", "convert_mlp", "Model.run", "Context.generate", "Prover", "verify"]
 )
 def test_entry_point_without_a_card_raises(monkeypatch, name):
     call = _entry_points()[name]

@@ -1,7 +1,8 @@
 """The frozen JAX outputs in torch_reference.json against the JAX package
 itself: each part is recomputed by `make_torch_reference` from the same
-seeded inputs and must equal the file. About 7 minutes on a CPU in all, so
-the tests run only when selected:
+seeded inputs and must equal the file. Many minutes on a CPU in all (XLA
+compiles every shape of every JAX prove), so the tests run only when
+selected:
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_reference.py -m jax_reference
 """
@@ -18,21 +19,27 @@ pytestmark = pytest.mark.jax_reference
 def _recompute(part):
     import make_torch_reference as M
 
-    if part == "sumcheck":
-        return M.sumcheck_reference()
-    if part == "dense":
-        return M.dense_reference()
-    return M.basefold_reference(part.split("_")[1])
+    if part.startswith("basefold_"):
+        return M.basefold_reference(part.split("_")[1])
+    if part.startswith("logup_"):
+        return M.logup_reference(part.split("_", 1)[1])
+    return M.PARTS[part]()
 
 
 def _frozen(part):
     ref = R.load()
     if part.startswith("basefold_"):
         return ref["basefold"][part.split("_")[1]]
+    if part.startswith("logup_"):
+        return ref["logup"][part.split("_", 1)[1]]
     return ref[part]
 
 
-@pytest.mark.parametrize("part", ["sumcheck", "basefold_rs", "basefold_trivial", "dense"])
+PARTS = ["sumcheck", "basefold_rs", "basefold_trivial", "dense"]
+PARTS += [f"logup_{name}" for name in R.LOGUP_CASES] + ["mlp"]
+
+
+@pytest.mark.parametrize("part", PARTS)
 def test_frozen_reference_equals_jax_package(request, part):
     if "jax_reference" not in (request.config.option.markexpr or ""):
         pytest.skip("recomputes the JAX package's proofs (minutes); select with -m jax_reference")

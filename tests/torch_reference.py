@@ -41,6 +41,15 @@ BASEFOLD_LABEL = b"torch-port basefold"
 DENSE_DIMS = [16, 32, 8]
 DENSE_KW = dict(num_queries=11, basecode_msg_size_log=2)
 
+# the Dense -> Requant -> ReLU chain of the lookup slice test (bench.py's
+# MLP at a small width): column sizes 16 and 4, three tables of 2^8 rows
+MLP_DIMS = [4, 16, 16, 3]
+MLP_KW = DENSE_KW
+REQUANT_FIELDS = ("right_shift", "fixed_point_multiplier", "fp_scale", "multiplier", "intermediate_bit_size")
+
+# logup-GKR cases on the inputs of tests/test_logup.py, at fixed seeds
+LOGUP_CASES = ("single", "multi", "table", "grouped_lookups", "grouped_tables", "wrong_multiplicity")
+
 
 def sumcheck_inputs():
     rng = np.random.default_rng(101)
@@ -70,6 +79,68 @@ def dense_inputs():
         layers.append((w.astype(np.int64), b.astype(np.int64)))
     x = rng.integers(Q_MIN, Q_MAX + 1, size=DENSE_DIMS[0]).astype(np.int64)
     return layers, x
+
+
+def mlp_inputs():
+    """bench.py's draw order (per layer matrix then bias, x last) at MLP_DIMS."""
+    rng = np.random.default_rng(104)
+    layers = []
+    for i in range(len(MLP_DIMS) - 1):
+        w = rng.integers(Q_MIN, Q_MAX + 1, size=(MLP_DIMS[i + 1], MLP_DIMS[i])).astype(np.int64)
+        b = rng.integers(Q_MIN, Q_MAX + 1, size=MLP_DIMS[i + 1]).astype(np.int64)
+        layers.append((w, b))
+    return layers, rng.integers(Q_MIN, Q_MAX + 1, size=MLP_DIMS[0]).astype(np.int64)
+
+
+def _ext(rng):
+    return tuple(int(v) for v in rng.integers(0, P, size=2, dtype=np.uint64))
+
+
+def _table_with_lookups(rng, bits, n_lookups):
+    table = np.arange(1 << bits, dtype=np.uint64)
+    lookups = rng.integers(0, 1 << bits, size=n_lookups, dtype=np.uint64)
+    mult = np.bincount(lookups.astype(np.int64), minlength=1 << bits).astype(np.uint64)
+    return table, lookups, mult
+
+
+def logup_case(name: str) -> list:
+    """The proofs of one case, each a dict: `kind` ("lookup", "table",
+    "grouped_lookups" or "grouped_tables"), the transcript `label`, and its
+    inputs as numpy uint64 columns and host ext-pair challenges:
+      lookup: columns, cpi (columns per instance), const, sep;
+      table: columns, mult, const, sep;
+      grouped_lookups: instances [(columns, const, sep)];
+      grouped_tables: instances [(columns, mult, const, sep)]."""
+    rng = np.random.default_rng(110 + LOGUP_CASES.index(name))
+    if name in ("single", "multi"):
+        num_cols, cpi, n = (1, 1, 4) if name == "single" else (4, 2, 3)
+        cols = [rng.integers(0, 1 << 8, size=1 << n, dtype=np.uint64) for _ in range(num_cols)]
+        return [dict(kind="lookup", label=b"lk", columns=cols, cpi=cpi, const=_ext(rng), sep=_ext(rng))]
+    if name in ("table", "wrong_multiplicity"):
+        bits = 4 if name == "table" else 3
+        table, lookups, mult = _table_with_lookups(rng, bits, 1 << (bits + 1))
+        if name == "wrong_multiplicity":
+            mult[0] += 1
+        const, sep = _ext(rng), _ext(rng)
+        return [
+            dict(kind="lookup", label=b"a", columns=[lookups], cpi=1, const=const, sep=sep),
+            dict(kind="table", label=b"b", columns=[table], mult=mult, const=const, sep=sep),
+        ]
+    if name == "grouped_lookups":
+        const = _ext(rng)
+        instances = []
+        for k in (2, 1, 1, 2):
+            cols = [rng.integers(0, 1 << 8, size=1 << 3, dtype=np.uint64) for _ in range(k)]
+            instances.append((cols, const, _ext(rng)))
+        return [dict(kind="grouped_lookups", label=b"gl", instances=instances)]
+    # two equal-size tables: an (in, out) pair and a one-column range
+    bits = 4
+    a_in, a_lookups, mult_a = _table_with_lookups(rng, bits, 1 << 5)
+    b_col, _, mult_b = _table_with_lookups(rng, bits, 1 << 5)
+    const = _ext(rng)
+    instances = [([a_in, (a_in * 3 + 1) % P], mult_a, const, _ext(rng)),
+                 ([b_col], mult_b, const, _ext(rng))]
+    return [dict(kind="grouped_tables", label=b"g", instances=instances)]
 
 
 def plain(obj):
