@@ -26,11 +26,24 @@ Phases, each printing one JSON line:
                Requant -> ReLU blocks, [4, 1024 x5, 3], logup-GKR for the
                lookups), driven and measured as the slice is; the output
                must equal a numpy evaluation of the same chain.
-  5. reference - the Dense chain [16, 32, 8] and the Dense -> Requant ->
-               ReLU chain [4, 16, 16, 3] proved on the card must equal the
-               JAX package's proofs frozen in tests/torch_reference.json.
-Then the kernel table line and, last, the device line. Any failure raises
-and exits non-zero; without a CUDA device it exits 2 and prints no result.
+  5. cnn     - the CIFAR-10 LeNet of PyTorch's "Training a classifier"
+               tutorial (3x32x32 input; conv 6@5x5, ReLU, maxpool; conv
+               16@5x5, ReLU, maxpool; flatten; dense 120, 84, 10 with ReLU
+               between), weights from default_rng(0) in PyTorch's default
+               init, `pad_pass` then `quantize(..., "inference", two
+               inputs)`, the first input proved as bench.py's bench_cnn
+               does, driven and measured as the slice is; the output must
+               equal a numpy evaluation of the quantized model.
+  6. reference - the Dense chain [16, 32, 8], the Dense -> Requant ->
+               ReLU chain [4, 16, 16, 3] and the three small CNNs of the CPU
+               tests (conv -> requant -> maxpool -> flatten -> dense, a
+               stride-2 conv, a tiny LeNet) proved on the card must equal
+               the JAX package's proofs frozen in tests/torch_reference.json.
+Then the seconds each phase took, the kernel table line and, last, the
+device line. Arguments, if any, name the path phases to run (slice,
+mlp_4m, cnn, reference; build and kernels always run); with none, all
+run. Any failure raises and exits non-zero; without a CUDA device it exits
+2 and prints no result.
 """
 
 from __future__ import annotations
@@ -263,7 +276,7 @@ def count_field_elements(obj) -> int:
         return sum(
             count_field_elements(getattr(obj, f.name))
             for f in dataclasses.fields(obj)
-            if f.name != "query_indices"
+            if f.name not in ("query_indices", "variable_gap")
         )
     if isinstance(obj, dict):
         return sum(count_field_elements(v) for v in obj.values())
@@ -391,9 +404,55 @@ def phase_mlp_4m():
     return result
 
 
+def quantized_lenet(cfg, ops, xs):
+    """A LeNet float model of tests/torch_reference.py's `lenet_float_ops`,
+    through `pad_pass` where its config asks for it and `quantize` with the
+    inference observer on all inputs; returns (model, first input quantized)."""
+    from deepprove_tpu_torch.zkml.convert import float_model_from_ops
+    from deepprove_tpu_torch.zkml.float_model import quantize
+    from deepprove_tpu_torch.zkml.padding import pad_pass
+
+    fm = float_model_from_ops(cfg["input_shape"], ops)
+    if cfg["pad_pass"]:
+        pad_pass(fm)
+    model, s_in, _ = quantize(fm, "inference", xs, device=DEVICE)
+    return model, s_in.quantize(xs[0])
+
+
+def phase_cnn():
+    """The CIFAR-10 LeNet at full width, quantized from a float model:
+    weights then bias a layer from default_rng(0), uniform(+-1/sqrt(fan_in)),
+    then two inputs from uniform(-1, 1); the first is proved."""
+    import torch_reference as R
+
+    model, x_np = quantized_lenet(R.LENET, *R.lenet_float_ops(R.LENET, np.random.default_rng(0)))
+    want = R.numpy_eval(R.layer_records(model), x_np)
+    specs = [model.nodes[n].op.spec for n in model.forward_order() if hasattr(model.nodes[n].op, "spec")]
+    result = {
+        **drive("cnn", model, x_np, want, PCS_KW, WARM_RUNS), "lenet": R.LENET,
+        "clamping_sizes": sorted({s.clamping_size() for s in specs}),
+        "layers": [type(model.nodes[n].op).__name__ for n in model.forward_order()],
+    }
+    emit(result)
+    return result
+
+
+def small_cnn(name):
+    """One of the CPU tests' CNN cases as (model on the card, input)."""
+    import torch_reference as R
+
+    from deepprove_tpu_torch.zkml.convert import model_from_layers
+
+    if name == "lenet":
+        return quantized_lenet(R.LENET_TINY, *R.cnn_case(name))
+    layers, x_np = R.cnn_case(name)
+    return model_from_layers(layers, DEVICE), x_np
+
+
 def phase_reference():
-    """The Dense chain and the Dense -> Requant -> ReLU chain of the CPU
-    tests, proved on the card: each proof must equal the JAX package's."""
+    """The Dense chain, the Dense -> Requant -> ReLU chain and the small
+    CNNs of the CPU tests, proved on the card: each proof must equal the
+    JAX package's."""
     import torch_reference as R
 
     from deepprove_tpu_torch.transcript import BasicTranscript
@@ -402,22 +461,26 @@ def phase_reference():
     from deepprove_tpu_torch.zkml.tensor import Tensor
 
     ref = R.load()
+    all_parts = ("steps", "table_proofs", "shared_logup", "commit")
+    dense_layers, dense_x = R.dense_inputs()
+    mlp_layers, mlp_x = R.mlp_inputs()
     cases = {
-        "dense": (R.dense_inputs, lambda layers: dense_chain_from_arrays(layers, DEVICE),
-                  R.DENSE_KW, ("steps", "commit")),
-        "mlp": (R.mlp_inputs, lambda layers: mlp_chain_from_arrays(layers, ref["mlp"]["specs"], DEVICE),
-                R.MLP_KW, ("steps", "table_proofs", "shared_logup", "commit")),
+        "dense": (lambda: (dense_chain_from_arrays(dense_layers, DEVICE), dense_x), R.DENSE_KW,
+                  ("steps", "commit"), ref["dense"]),
+        "mlp": (lambda: (mlp_chain_from_arrays(mlp_layers, ref["mlp"]["specs"], DEVICE), mlp_x), R.MLP_KW,
+                all_parts, ref["mlp"]),
     }
+    for name in R.CNN_CASES:
+        cases[f"cnn_{name}"] = (lambda name=name: small_cnn(name), R.CNN_KW, all_parts, ref["cnn"][name])
     equal = {}
-    for name, (inputs, build, kw, parts) in cases.items():
-        layers, x_np = inputs()
-        model = build(layers)
+    for name, (inputs, kw, parts, frozen) in cases.items():
+        model, x_np = inputs()
         x = Tensor(torch.from_numpy(x_np))
         trace = model.run([x], DEVICE)
         ctx = Context.generate(model, device=DEVICE, **kw)
         proof = Prover(ctx, BasicTranscript(b"m2vec"), device=DEVICE).prove(trace)
         verify(ctx, proof, IO([x], trace.outputs), BasicTranscript(b"m2vec"), device=DEVICE)
-        equal[name] = {p: R.plain(getattr(proof, p)) for p in parts} == ref[name]["proof"]
+        equal[name] = {p: R.plain(getattr(proof, p)) for p in parts} == frozen["proof"]
     ok = all(equal.values())
     emit({"phase": "reference", "ok": ok, "dims": {"dense": R.DENSE_DIMS, "mlp": R.MLP_DIMS},
           "equal_to_jax_proof": equal})
@@ -425,23 +488,39 @@ def phase_reference():
         raise AssertionError(f"the card's proofs differ from the JAX package's: {equal}")
 
 
-def main() -> int:
+PATH_PHASES = {"slice": phase_slice, "mlp_4m": phase_mlp_4m, "cnn": phase_cnn, "reference": phase_reference}
+MAIN_PATH = "cnn"  # the main path: the kernels line's `launches` are its
+
+
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    names = argv or list(PATH_PHASES)
+    unknown = set(names) - set(PATH_PHASES)
+    if unknown:
+        raise SystemExit(f"unknown phases {sorted(unknown)}; choose from {list(PATH_PHASES)}")
+    t0 = time.perf_counter()
     card, stats = phase_build()
     k = phase_kernels(stats["threads_per_block"])
-    s = phase_slice()
-    m = phase_mlp_4m()
-    phase_reference()
+    seconds = {"build_and_kernels": time.perf_counter() - t0}
+    paths = []
+    for name in (n for n in PATH_PHASES if n in names):
+        t1 = time.perf_counter()
+        result = PATH_PHASES[name]()
+        seconds[name] = time.perf_counter() - t1
+        if result is not None:
+            paths.append(result)
+    emit({"phase": "elapsed", "seconds": seconds, "total_s": time.perf_counter() - t0})
+    main_path = next((p for p in paths if p["phase"] == MAIN_PATH), paths[0] if paths else None)
     emit({"kernels": [{
         "name": "poseidon2_compress_level",
         "route": "cuda",
         "source": "deepprove_tpu_torch/csrc/poseidon2_compress.cu",
         "replaces": "deepprove_tpu/hashing/poseidon2_pallas.py:142",
-        "launches": m["launches"],
+        "launches": main_path["launches"] if main_path else None,
         "launches_by_path": {p["phase"]: [p["launches_setup"], p["launches_prove"], p["launches_verify"]]
-                             for p in (s, m)},
+                             for p in paths},
         "max_abs_err": k["max_abs_err"],
         "ms": k["kernel_ms"],
         "plain_ms": k["plain_ms"],
@@ -464,4 +543,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -71,11 +71,12 @@ def geom_powers(g, n: int) -> np.ndarray:
 
 
 @lru_cache(maxsize=None)
-def _root_rows_host(lg_n: int) -> tuple:
+def _root_rows_host(lg_n: int, inverse: bool = False) -> tuple:
     """Root-table rows: row lg_m-1 = first half powers of the 2^lg_m-th root
-    of unity, length max(half_m, 2)."""
+    of unity (of its inverse for the inverse transform), length
+    max(half_m, 2)."""
     g = host.pow_const(np.uint64(host.TWO_ADIC_GENERATOR), 1 << (host.TWO_ADICITY - lg_n))
-    bases = [g]
+    bases = [host.pow_const(g, host.P - 2) if inverse else g]
     for _ in range(1, lg_n):
         bases.append(host.mul(bases[-1], bases[-1]))
     rows = []
@@ -85,11 +86,20 @@ def _root_rows_host(lg_n: int) -> tuple:
     return tuple(rows)
 
 
-def _root_rows(lg_n: int, device) -> list:
+def _root_rows(lg_n: int, device, inverse: bool = False) -> list:
     return _on_device(
-        ("roots", lg_n), device,
-        lambda: [gf.from_u64(r, device) for r in _root_rows_host(lg_n)],
+        ("roots", lg_n, inverse), device,
+        lambda: [gf.from_u64(r, device) for r in _root_rows_host(lg_n, inverse)],
     )
+
+
+def subgroup_gen(lg_n: int) -> int:
+    """Generator of the order-2^lg_n subgroup."""
+    return int(host.pow_const(np.uint64(host.TWO_ADIC_GENERATOR), 1 << (host.TWO_ADICITY - lg_n)))
+
+
+def _n_inv(lg_n: int) -> int:
+    return int(host.pow_const(np.uint64(1 << lg_n), host.P - 2))
 
 
 @lru_cache(maxsize=None)
@@ -124,6 +134,28 @@ def fft(values, lg_n: int | None = None):
     if lg_n is None:
         lg_n = values.shape[0].bit_length() - 1
     return _butterflies(bit_reverse(values, lg_n), lg_n, _root_rows(lg_n, values.device))
+
+
+def ifft(values, lg_n: int | None = None):
+    """Inverse cyclic FFT: y[t] = (1/N) sum_k v[k] omega^(-tk) (natural order)."""
+    if lg_n is None:
+        lg_n = values.shape[0].bit_length() - 1
+    out = _butterflies(bit_reverse(values, lg_n), lg_n, _root_rows(lg_n, values.device, inverse=True))
+    return _map_planes(out, lambda p: gf.mul(p, _n_inv(lg_n)))
+
+
+def fft_rows(values2d, inverse: bool = False):
+    """Batched row-wise (i)FFT of a (B, N) base or GF2 array, natural order
+    both ways. Every stage runs over all rows at once: a stage's (-1, m)
+    view never crosses a row because N is a multiple of m."""
+    b, n = values2d.shape
+    lg_n = n.bit_length() - 1
+    perm = _perm(lg_n, values2d.device)
+    flat = _map_planes(values2d, lambda p: p[:, perm].reshape(-1))
+    out = _butterflies(flat, lg_n, _root_rows(lg_n, values2d.device, inverse))
+    if inverse:
+        out = _map_planes(out, lambda p: gf.mul(p, _n_inv(lg_n)))
+    return out.reshape(b, n)
 
 
 def coset_fft(values, shift: int):

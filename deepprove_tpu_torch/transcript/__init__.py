@@ -72,3 +72,8 @@ class BasicTranscript:
     def get_and_append_challenge(self, label: bytes) -> tuple[int, int]:
         self.append_message(label)
         return self.read_challenge()
+
+
+def default_transcript() -> BasicTranscript:
+    """The zkml pipeline's transcript: label b"m2vec"."""
+    return BasicTranscript(b"m2vec")

@@ -4,7 +4,10 @@
 numpy (matrix, bias) int64 arrays a JAX-package model holds;
 `mlp_chain_from_arrays` builds the Dense -> Requant -> ReLU chain of
 `bench.py`'s MLPs from the same arrays and each Requant's spec fields, so
-that both packages prove the very same model.
+that both packages prove the very same model. `model_from_layers` builds
+any chain of the port's layers from [(kind, fields)] numpy records (a
+JAX-package Model's layers), and `float_model_from_ops` a FloatModel from
+[(kind, weight, bias, stride)] float arrays.
 """
 
 from __future__ import annotations
@@ -14,9 +17,13 @@ import torch
 
 from .. import device as device_mod
 from . import quantization as Q
+from .float_model import FConv, FDense, FFlatten, FloatModel, FMaxpool, FRelu
 from .layers.activation import Relu
+from .layers.convolution import Convolution
 from .layers.dense import Dense
+from .layers.pooling import Maxpool2D
 from .layers.requant import Requant
+from .layers.shape_ops import Flatten
 from .model import Model
 from .quantization import RequantSpec
 
@@ -63,3 +70,51 @@ def mlp_chain_from_arrays(layers, requant_specs=None, device="cuda") -> Model:
         model.add_chain(Requant(spec=spec))
         model.add_chain(Relu())
     return model
+
+
+def _tensor(a, dev) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(dev)
+
+
+def model_from_layers(layers, device="cuda") -> Model:
+    """A chain of the port's layers from [(kind, fields)] records:
+      conv: filter (kw, kx, k, k), bias (kw,), input_shape, stride;
+      dense: matrix (rows, cols), bias (rows,);
+      requant: the RequantSpec fields, or only `multiplier`, the bit size
+        then taken from the layer before (`output_bitsize`);
+      relu, maxpool, flatten: no fields."""
+    dev = device_mod.resolve(device)
+    model, prev = Model(), None
+    for kind, f in layers:
+        if kind == "conv":
+            op = Convolution(
+                filter=_tensor(f["filter"], dev), bias=_tensor(f["bias"], dev),
+                input_shape=tuple(f["input_shape"]), stride=int(f["stride"]),
+            )
+        elif kind == "dense":
+            op = _dense(f["matrix"], f["bias"], dev)
+        elif kind == "requant":
+            if set(f) == {"multiplier"}:
+                spec = RequantSpec.from_multiplier(f["multiplier"], prev.output_bitsize())
+            else:
+                spec = RequantSpec(**{k: f[k] for k in SPEC_FIELDS})
+            op = Requant(spec=spec)
+        else:
+            op = {"relu": Relu, "maxpool": Maxpool2D, "flatten": Flatten}[kind]()
+        model.add_chain(op)
+        prev = op
+    return model
+
+
+def float_model_from_ops(input_shape, ops) -> FloatModel:
+    """A FloatModel chain from [(kind, weight, bias, stride)] float arrays
+    (kind conv, dense, relu, maxpool or flatten)."""
+    fm = FloatModel(input_shape=input_shape)
+    for kind, w, b, stride in ops:
+        if kind == "conv":
+            fm.add(FConv(weight=np.asarray(w, dtype=np.float64), bias=np.asarray(b, dtype=np.float64), stride=stride))
+        elif kind == "dense":
+            fm.add(FDense(weight=np.asarray(w, dtype=np.float64), bias=np.asarray(b, dtype=np.float64)))
+        else:
+            fm.add({"relu": FRelu, "maxpool": FMaxpool, "flatten": FFlatten}[kind]())
+    return fm

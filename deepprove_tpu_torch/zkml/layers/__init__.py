@@ -1,3 +1,3 @@
-from . import activation, dense, requant
+from . import activation, convolution, dense, pooling, requant, shape_ops
 
-__all__ = ["activation", "dense", "requant"]
+__all__ = ["activation", "convolution", "dense", "pooling", "requant", "shape_ops"]

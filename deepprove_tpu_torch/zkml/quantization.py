@@ -1,5 +1,5 @@
 """Symmetric quantization constants, the Element -> field map and the
-requantization spec.
+requantization spec, and the scaling factors of float quantization.
 
 Element = int64; BIT_LEN-bit symmetric range [MIN, MAX] =
 [-(2^(b-1)) + 1, 2^(b-1) - 1], as in the JAX package's
@@ -14,6 +14,7 @@ import dataclasses
 import math
 import os
 
+import numpy as np
 import torch
 
 from ..fields.gf import P_I64
@@ -27,6 +28,41 @@ FIXED_POINT_SCALE = 25
 def to_field(x: torch.Tensor) -> torch.Tensor:
     """int64 Elements -> canonical Goldilocks (int64 bit patterns)."""
     return torch.where(x < 0, x + P_I64, x)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScalingFactor:
+    """A float span and its scale onto the Element domain (host numpy), as
+    in the JAX package's `zkml/quantization.py`."""
+
+    min: float
+    max: float
+    scale: float
+    domain: tuple = (MIN, MAX)
+
+    @staticmethod
+    def from_absolute_max(abs_max: float, domain=None) -> "ScalingFactor":
+        return ScalingFactor.from_span(-abs(abs_max), abs(abs_max), domain)
+
+    @staticmethod
+    def from_span(mn: float, mx: float, domain=None) -> "ScalingFactor":
+        domain = domain or (MIN, MAX)
+        return ScalingFactor(min=mn, max=mx, scale=(mx - mn) / float(domain[1] - domain[0]), domain=domain)
+
+    @staticmethod
+    def from_tensor(data: np.ndarray, domain=None) -> "ScalingFactor":
+        return ScalingFactor.from_absolute_max(float(np.max(np.abs(data))), domain)
+
+    def m(self, s2: "ScalingFactor", s3: "ScalingFactor") -> float:
+        """The requant multiplier M = S1 S2 / S3."""
+        return self.scale * s2.scale / s3.scale
+
+    def quantize(self, values) -> np.ndarray:
+        q = np.round(np.asarray(values, dtype=np.float64) / self.scale).astype(np.int64)
+        return np.clip(q, self.domain[0], self.domain[1])
+
+    def dequantize(self, values) -> np.ndarray:
+        return np.asarray(values, dtype=np.float64) * self.scale
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Where one prove of Dense-4M spends its time on a GPU.
+"""Where one prove of Dense-4M, or of the CIFAR-10 LeNet, spends its time
+on a GPU.
 
-    python3 scripts/profile_torch_slice.py
+    python3 scripts/profile_torch_slice.py [mlp] [cnn] [kernel]
 
-Builds Dense-4M (bench.py's build_mlp_4m: six Dense -> Requant -> ReLU
-blocks, dims [4, 1024, 1024, 1024, 1024, 1024, 3]) as chip_smoke.py's
-`mlp_4m` phase does, runs setup and a warm prove, then:
+With no argument all three parts run. `mlp` builds Dense-4M (bench.py's
+build_mlp_4m: six Dense -> Requant -> ReLU blocks, dims [4, 1024 x5, 3])
+and `cnn` the LeNet, both as chip_smoke.py's `mlp_4m` and `cnn` phases
+do; each runs setup and a warm prove, then prints:
   1. `components`: inclusive wall time and calls of the prove's main steps
      (the lookup witnesses and their commits, the consolidated lookup
-     proofs, the table proofs, the Requant, ReLU and Dense proves, the
-     sumchecks, the commitment opening and its parts), each wrapped (in
-     this script only) with a device synchronize on entry and exit, so
-     queued device work is charged to the step that queued it;
+     proofs, the table proofs, the layer proves, the sumchecks, the
+     commitment opening and its parts; for the LeNet also each conv's
+     clearing, iFFT, hadamard and FFT sumchecks, its two delegation
+     chains, its phi tables, the maxpools, and the FFT rows of inference),
+     each wrapped (in this script only) with a device synchronize on entry
+     and exit, so queued device work is charged to the step that queued it;
   2. `profile`: one prove under torch.profiler (CUDA activity): kernel
      launches, summed kernel time, the device's busy share of an
      unprofiled warm prove, the kernels that take the most time, and the
@@ -23,7 +27,7 @@ blocks, dims [4, 1024, 1024, 1024, 1024, 1024, 3]) as chip_smoke.py's
      `scripts/int_mul_rates.cu` (multiplies an SM a clock, the clock read
      inside the kernel), with the multiply bound at 2^19 pairs that the
      measured wide-multiply rate gives beside chip_smoke.py's `bound_ms`.
-Prints one JSON line per part. Needs a CUDA device.
+Prints one JSON line per part (`path` names the model). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -143,31 +147,101 @@ def kernel_part(cs) -> None:
     }), flush=True)
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("profile_torch_slice: no CUDA device is available", file=sys.stderr)
-        return 2
-    import chip_smoke as cs
+class ConvSteps:
+    """Names each sumcheck a Convolution.prove runs by its order (clearing,
+    ifft, hadamard, fft) and charges the delegation chains and phi tables
+    to their conv, by wrapping the conv module's bound names."""
+
+    ORDER = ("clearing", "ifft", "hadamard", "fft")
+
+    def __init__(self, table):
+        self.table, self.node, self.seq, self.in_deleg = table, None, 0, False
+
+    def install(self):
+        from deepprove_tpu_torch.zkml.layers import convolution as conv
+
+        self.saved = {n: getattr(conv, n) for n in ("prove_device", "delegate_prove", "phi_partials")}
+        saved_prove = conv.Convolution.prove
+        self.saved_prove = saved_prove
+        me = self
+
+        def timed(key, fn, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            entry = me.table[key]
+            entry[0] += time.perf_counter() - t0
+            entry[1] += 1
+            return out
+
+        def conv_prove(self_, node_id, *args):
+            me.node, me.seq = node_id, 0
+            out = timed(f"conv{node_id}", saved_prove, self_, node_id, *args)
+            me.node = None
+            return out
+
+        def prove_device(vp, dt):
+            if me.node is None or me.in_deleg:
+                return me.saved["prove_device"](vp, dt)
+            name = ConvSteps.ORDER[me.seq]
+            me.seq += 1
+            return timed(f"conv{me.node}_{name}_sumcheck", me.saved["prove_device"], vp, dt)
+
+        def delegate_prove(*args):
+            me.in_deleg = True
+            out = timed(f"conv{me.node}_delegation", me.saved["delegate_prove"], *args)
+            me.in_deleg = False
+            return out
+
+        conv.Convolution.prove = conv_prove
+        conv.prove_device = prove_device
+        conv.delegate_prove = delegate_prove
+        conv.phi_partials = lambda *a: timed(f"conv{me.node}_phi_tables", self.saved["phi_partials"], *a)
+
+    def restore(self):
+        from deepprove_tpu_torch.zkml.layers import convolution as conv
+
+        for n, fn in self.saved.items():
+            setattr(conv, n, fn)
+        conv.Convolution.prove = self.saved_prove
+
+
+def build_path(cs, path):
+    """(model, first input as numpy) of chip_smoke.py's phase for `path`."""
+    import numpy as np
+
+    import torch_reference as R
+    from deepprove_tpu_torch.zkml.convert import mlp_chain_from_arrays
+
+    if path == "cnn":
+        return cs.quantized_lenet(R.LENET, *R.lenet_float_ops(R.LENET, np.random.default_rng(0)))
+    layers, x_np = cs.build_chain(cs.MLP_4M_DIMS, 0)
+    return mlp_chain_from_arrays(layers, device="cuda"), x_np
+
+
+def profile_path(cs, path) -> None:
     from deepprove_tpu_torch import glue
     from deepprove_tpu_torch.lookup import logup
-    from deepprove_tpu_torch.pcs import basefold, merkle
+    from deepprove_tpu_torch.pcs import basefold, merkle, ntt
     from deepprove_tpu_torch.sumcheck import prover as sc_prover
     from deepprove_tpu_torch.transcript import BasicTranscript
     from deepprove_tpu_torch.zkml import commit
-    from deepprove_tpu_torch.zkml.convert import mlp_chain_from_arrays
     from deepprove_tpu_torch.zkml.iop import Context, Prover
     from deepprove_tpu_torch.zkml.iop import prover as iop_prover
-    from deepprove_tpu_torch.zkml.layers import activation, dense, requant
+    from deepprove_tpu_torch.zkml.layers import activation, convolution, dense, pooling, requant
     from deepprove_tpu_torch.zkml.tensor import Tensor
 
-    layers, x_np = cs.build_chain(cs.MLP_4M_DIMS, 0)
-    model = mlp_chain_from_arrays(layers, device="cuda")
-    trace = model.run([Tensor(torch.from_numpy(x_np))], "cuda")
+    model, x_np = build_path(cs, path)
+    x = Tensor(torch.from_numpy(x_np))
+    table = collections.defaultdict(lambda: [0.0, 0])
+    fft = _wrap(ntt, "fft_rows", table, "inference_fft_rows")
+    trace = model.run([x], "cuda")
+    ntt.fft_rows = fft
     ctx = Context.generate(model, device="cuda", **cs.PCS_KW)
     Prover(ctx, BasicTranscript(b"m2vec"), device="cuda").prove(trace)
     warm_ms, _ = cs.wall_ms(lambda: Prover(ctx, BasicTranscript(b"m2vec"), device="cuda").prove(trace))
 
-    table = collections.defaultdict(lambda: [0.0, 0])
     targets = [
         (iop_prover, "generate_lookup_witnesses", "lookup_witnesses"),
         (iop_prover.Prover, "_prove_shared_logup", "shared_logup"),
@@ -175,6 +249,7 @@ def main() -> int:
         (requant.Requant, "prove", "requant_layer"),
         (activation.Relu, "prove", "relu_layer"),
         (dense.Dense, "prove", "dense_layer"),
+        (pooling.Maxpool2D, "prove", "maxpool_layer"),
         (commit.CommitmentProver, "prove", "commit_open"),
         (sc_prover, "prove_device", "sumcheck"),
         (basefold, "commit", "basefold_commit"),
@@ -184,17 +259,20 @@ def main() -> int:
         (glue, "materialize", "materialize"),
     ]
     originals = [(o, n, _wrap(o, n, table, k)) for o, n, k in targets]
-    by_name = (dense, requant, logup, commit)  # modules that bound prove_device at import
+    by_name = (dense, requant, pooling, logup, commit)  # modules that bound prove_device at import
     for mod in by_name:
         mod.prove_device = sc_prover.prove_device
+    convolution.prove_device = sc_prover.prove_device
+    conv_steps = ConvSteps(table)
+    conv_steps.install()
     total_ms, _ = cs.wall_ms(lambda: Prover(ctx, BasicTranscript(b"m2vec"), device="cuda").prove(trace))
+    conv_steps.restore()
     for owner, name, raw in originals:
         setattr(owner, name, raw)
-    for mod in by_name:
+    for mod in by_name + (convolution,):
         mod.prove_device = sc_prover.prove_device
     print(json.dumps({
-        "part": "components", "dims": cs.MLP_4M_DIMS, "warm_prove_ms": warm_ms,
-        "synced_prove_ms": total_ms,
+        "part": "components", "path": path, "warm_prove_ms": warm_ms, "synced_prove_ms": total_ms,
         "inclusive_ms": {k: v[0] * 1e3 for k, v in table.items()},
         "calls": {k: v[1] for k, v in table.items()},
         "card": cs.nvidia_smi("name,power.limit"),
@@ -205,27 +283,44 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         Prover(ctx, BasicTranscript(b"m2vec"), device="cuda").prove(trace)
         torch.cuda.synchronize()
-    by_name = collections.defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            rec = by_name[e.name[:160]]
-            rec[0] += e.time_range.elapsed_us()
+    # the raw kineto events: building the profiler's FunctionEvent tree for
+    # millions of launches takes longer than the prove itself
+    per_kernel = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            rec = per_kernel[e.name()[:160]]
+            rec[0] += e.duration_ns() / 1e3
             rec[1] += 1
-    kernel_us = sum(v[0] for v in by_name.values())
-    merkle = [v for k, v in by_name.items() if cs.KERNEL in k]
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    kernel_us = sum(v[0] for v in per_kernel.values())
+    merkle_k = [v for k, v in per_kernel.items() if cs.KERNEL in k]
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:10]
     print(json.dumps({
-        "part": "profile", "kernel_launches": sum(v[1] for v in by_name.values()),
+        "part": "profile", "path": path, "kernel_launches": sum(v[1] for v in per_kernel.values()),
         "kernel_ms": kernel_us / 1e3, "warm_prove_ms": warm_ms,
         "busy_share": kernel_us / 1e3 / warm_ms,
-        "merkle_kernel_ms": sum(v[0] for v in merkle) / 1e3,
-        "merkle_kernel_launches": sum(v[1] for v in merkle),
+        "merkle_kernel_ms": sum(v[0] for v in merkle_k) / 1e3,
+        "merkle_kernel_launches": sum(v[1] for v in merkle_k),
         "top": [{"kernel": k, "ms": v[0] / 1e3, "count": v[1]} for k, v in top],
         "card": cs.nvidia_smi("name,power.limit"),
     }), flush=True)
-    kernel_part(cs)
+
+
+def main(argv) -> int:
+    if not torch.cuda.is_available():
+        print("profile_torch_slice: no CUDA device is available", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+
+    parts = argv or ["mlp", "cnn", "kernel"]
+    for part in parts:
+        if part == "kernel":
+            kernel_part(cs)
+        elif part in ("mlp", "cnn"):
+            profile_path(cs, part)
+        else:
+            raise SystemExit(f"unknown part {part!r}; choose from mlp, cnn, kernel")
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -20,6 +20,8 @@ import json
 import os
 import sys
 
+import numpy as np
+
 import jax
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -36,9 +38,13 @@ from deepprove_tpu.transcript import BasicTranscript  # noqa: E402
 from deepprove_tpu.transcript.session import DeviceTranscript  # noqa: E402
 from deepprove_tpu.zkml.iop import Context, Prover, verify  # noqa: E402
 from deepprove_tpu.zkml.iop.verifier import IO  # noqa: E402
+from deepprove_tpu.zkml.float_model import FConv, FDense, FFlatten, FloatModel, FMaxpool, FRelu, quantize  # noqa: E402
 from deepprove_tpu.zkml.layers.activation import Relu  # noqa: E402
+from deepprove_tpu.zkml.layers.convolution import Convolution  # noqa: E402
 from deepprove_tpu.zkml.layers.dense import Dense  # noqa: E402
+from deepprove_tpu.zkml.layers.pooling import Maxpool2D  # noqa: E402
 from deepprove_tpu.zkml.layers.requant import Requant  # noqa: E402
+from deepprove_tpu.zkml.layers.shape_ops import Flatten  # noqa: E402
 from deepprove_tpu.zkml.quantization import BIT_LEN, RequantSpec  # noqa: E402
 from deepprove_tpu.zkml.model import Model  # noqa: E402
 from deepprove_tpu.zkml.tensor import Tensor  # noqa: E402
@@ -136,12 +142,67 @@ def mlp_reference() -> dict:
     }
 
 
+def jax_model(layers) -> Model:
+    """The JAX package's Model of [(kind, fields)] (`R.cnn_case`'s layer form);
+    a requant given only a multiplier takes its bit size from the layer before."""
+    model, prev = Model(), None
+    for kind, f in layers:
+        if kind == "conv":
+            op = Convolution(filter=f["filter"], bias=f["bias"], input_shape=f["input_shape"], stride=f["stride"])
+        elif kind == "dense":
+            op = Dense(matrix=f["matrix"], bias=f["bias"])
+        elif kind == "requant":
+            op = Requant(spec=RequantSpec.from_multiplier(f["multiplier"], prev.output_bitsize()))
+        else:
+            op = {"relu": Relu, "maxpool": Maxpool2D, "flatten": Flatten}[kind]()
+        model.add_chain(op)
+        prev = op
+    return model
+
+
+def jax_float_model(input_shape, ops) -> FloatModel:
+    """The JAX package's FloatModel of [(kind, weight, bias, stride)]."""
+    fm = FloatModel(input_shape=input_shape)
+    for kind, w, b, stride in ops:
+        if kind == "conv":
+            fm.add(FConv(weight=w, bias=b, stride=stride))
+        elif kind == "dense":
+            fm.add(FDense(weight=w, bias=b))
+        else:
+            fm.add({"relu": FRelu, "maxpool": FMaxpool, "flatten": FFlatten}[kind]())
+    return fm
+
+
+def cnn_reference(name: str) -> dict:
+    """One CNN case of `R.cnn_case`, proved and verified with the JAX package;
+    the LeNet is quantized first (inference observer, both inputs) and its
+    first input proved, as bench.py's bench_cnn does."""
+    if name == "lenet":
+        ops, xs = R.cnn_case(name)
+        model, s_in, _ = quantize(jax_float_model(R.LENET_TINY["input_shape"], ops), "inference", xs)
+        x = Tensor(s_in.quantize(xs[0]).astype(np.int64))
+    else:
+        layers, x_np = R.cnn_case(name)
+        model, x = jax_model(layers), Tensor(x_np)
+    trace = model.run([x])
+    ctx = Context.generate(model, **R.CNN_KW)
+    proof = Prover(ctx, BasicTranscript(b"m2vec")).prove(trace)
+    verify(ctx, proof, IO([x], trace.outputs), BasicTranscript(b"m2vec"))
+    assert not proof.merges
+    return {
+        "input": R.plain(x.data),
+        "output": R.plain(trace.outputs[0].data),
+        "proof": {k: R.plain(getattr(proof, k)) for k in ("steps", "table_proofs", "shared_logup", "commit")},
+    }
+
+
 PARTS = {
     "sumcheck": sumcheck_reference,
     "basefold": lambda: {name: basefold_reference(name) for name in ("rs", "trivial")},
     "dense": dense_reference,
     "logup": lambda: {name: logup_reference(name) for name in R.LOGUP_CASES},
     "mlp": mlp_reference,
+    "cnn": lambda: {name: cnn_reference(name) for name in R.CNN_CASES},
 }
 
 

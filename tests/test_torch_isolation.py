@@ -48,7 +48,9 @@ def test_sources_do_not_import_jax_or_the_jax_package():
 
 def _entry_points():
     from deepprove_tpu_torch.transcript import BasicTranscript
-    from deepprove_tpu_torch.zkml.convert import dense_chain_from_arrays, mlp_chain_from_arrays
+    from deepprove_tpu_torch.api import prove_model, prove_onnx
+    from deepprove_tpu_torch.zkml.convert import dense_chain_from_arrays, mlp_chain_from_arrays, model_from_layers
+    from deepprove_tpu_torch.zkml.float_model import FDense, FloatModel, quantize
     from deepprove_tpu_torch.zkml.iop import IO, Context, Prover, verify
     from deepprove_tpu_torch.zkml.tensor import Tensor
 
@@ -56,6 +58,7 @@ def _entry_points():
     model = dense_chain_from_arrays(layers, device="cpu")
     ctx = Context.generate(model, device="cpu", num_queries=2, basecode_msg_size_log=1)
     x = Tensor(torch.ones(2, dtype=torch.int64))
+    fm = FloatModel(input_shape=(2,)).add(FDense(weight=np.ones((2, 2)), bias=np.zeros(2)))
     return {
         "convert": lambda: dense_chain_from_arrays(layers),
         "convert_mlp": lambda: mlp_chain_from_arrays(layers),
@@ -63,11 +66,17 @@ def _entry_points():
         "Context.generate": lambda: Context.generate(model),
         "Prover": lambda: Prover(ctx, BasicTranscript(b"m2vec")),
         "verify": lambda: verify(ctx, None, IO([x], [x]), BasicTranscript(b"m2vec")),
+        "convert_layers": lambda: model_from_layers([("relu", {})]),
+        "quantize": lambda: quantize(fm),
+        "api.prove_model": lambda: prove_model(model, [x]),
+        "api.prove_onnx": lambda: prove_onnx("model.onnx", [np.zeros(2)]),
     }
 
 
 @pytest.mark.parametrize(
-    "name", ["convert", "convert_mlp", "Model.run", "Context.generate", "Prover", "verify"]
+    "name",
+    ["convert", "convert_mlp", "Model.run", "Context.generate", "Prover", "verify", "convert_layers",
+     "quantize", "api.prove_model", "api.prove_onnx"],
 )
 def test_entry_point_without_a_card_raises(monkeypatch, name):
     call = _entry_points()[name]

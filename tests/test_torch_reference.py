@@ -23,6 +23,8 @@ def _recompute(part):
         return M.basefold_reference(part.split("_")[1])
     if part.startswith("logup_"):
         return M.logup_reference(part.split("_", 1)[1])
+    if part.startswith("cnn_"):
+        return M.cnn_reference(part.split("_", 1)[1])
     return M.PARTS[part]()
 
 
@@ -32,11 +34,14 @@ def _frozen(part):
         return ref["basefold"][part.split("_")[1]]
     if part.startswith("logup_"):
         return ref["logup"][part.split("_", 1)[1]]
+    if part.startswith("cnn_"):
+        return ref["cnn"][part.split("_", 1)[1]]
     return ref[part]
 
 
 PARTS = ["sumcheck", "basefold_rs", "basefold_trivial", "dense"]
 PARTS += [f"logup_{name}" for name in R.LOGUP_CASES] + ["mlp"]
+PARTS += [f"cnn_{name}" for name in R.CNN_CASES]
 
 
 @pytest.mark.parametrize("part", PARTS)

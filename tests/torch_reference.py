@@ -47,6 +47,24 @@ MLP_DIMS = [4, 16, 16, 3]
 MLP_KW = DENSE_KW
 REQUANT_FIELDS = ("right_shift", "fixed_point_multiplier", "fp_scale", "multiplier", "intermediate_bit_size")
 
+# the CNN slice, at the JAX tests' PCS sizes: (a) the conv -> requant ->
+# maxpool -> flatten -> dense model of tests/test_zkml_conv.py:55-80, (b)
+# the strided conv of :117-133, (c) a tiny LeNet-shaped float model
+# quantized with the inference observer
+CNN_KW = dict(num_queries=7, basecode_msg_size_log=2)
+CNN_CASES = ("conv_pool_dense", "strided", "lenet")
+
+# LeNet shapes: input, then (out channels, kernel) a conv (each followed by
+# ReLU and a 2x2 maxpool), then the dense widths (ReLU between them);
+# `flat_in` is the first dense layer's column count. LENET is the CIFAR-10
+# classifier of PyTorch's "Training a classifier" tutorial (its first dense
+# layer reads the 16 x 5 x 5 valid outputs, which `pad_pass` spreads over
+# the padded 16 x 8 x 8 grid); LENET_TINY is case (c), whose dense layer
+# reads the padded 4 x 2 x 2 grid directly.
+LENET = dict(input_shape=(3, 32, 32), convs=((6, 5), (16, 5)), denses=(120, 84, 10), flat_in=400,
+             pad_pass=True)
+LENET_TINY = dict(input_shape=(3, 8, 8), convs=((4, 3), (4, 3)), denses=(8, 3), flat_in=16, pad_pass=False)
+
 # logup-GKR cases on the inputs of tests/test_logup.py, at fixed seeds
 LOGUP_CASES = ("single", "multi", "table", "grouped_lookups", "grouped_tables", "wrong_multiplicity")
 
@@ -90,6 +108,126 @@ def mlp_inputs():
         b = rng.integers(Q_MIN, Q_MAX + 1, size=MLP_DIMS[i + 1]).astype(np.int64)
         layers.append((w, b))
     return layers, rng.integers(Q_MIN, Q_MAX + 1, size=MLP_DIMS[0]).astype(np.int64)
+
+
+def cnn_case(name: str):
+    """Inputs of one CNN case. (a), (b): ([(kind, fields)], x) in the layer
+    form of `convert.model_from_layers`, the draw order of the JAX tests;
+    (c): (float ops, calibration inputs) from `lenet_float_ops`."""
+    rng = np.random.default_rng(120 + CNN_CASES.index(name))
+    if name == "lenet":
+        return lenet_float_ops(LENET_TINY, rng)
+    if name == "strided":
+        kx, n, k, kw, s = 1, 8, 3, 2, 2
+        x = rng.integers(Q_MIN, Q_MAX + 1, size=(kx, n, n)).astype(np.int64)
+        w = rng.integers(Q_MIN, Q_MAX + 1, size=(kw, kx, k, k)).astype(np.int64)
+        b = rng.integers(Q_MIN, Q_MAX + 1, size=kw).astype(np.int64)
+        return [("conv", dict(filter=w, bias=b, input_shape=(kx, n, n), stride=s))], x
+    kx, n, k, kw = 1, 4, 2, 2
+    x = rng.integers(Q_MIN, Q_MAX + 1, size=(kx, n, n)).astype(np.int64)
+    w = rng.integers(Q_MIN // 8, Q_MAX // 8, size=(kw, kx, k, k)).astype(np.int64)
+    b = rng.integers(Q_MIN, Q_MAX + 1, size=kw).astype(np.int64)
+    dmat = rng.integers(Q_MIN, Q_MAX + 1, size=(4, kw * (n // 2) ** 2)).astype(np.int64)
+    dbias = rng.integers(Q_MIN, Q_MAX + 1, size=4).astype(np.int64)
+    layers = [
+        ("conv", dict(filter=w, bias=b, input_shape=(kx, n, n), stride=1)),
+        ("requant", dict(multiplier=1.0 / (1 << 10))),  # spec from the conv's bit size
+        ("maxpool", {}),
+        ("flatten", {}),
+        ("dense", dict(matrix=dmat, bias=dbias)),
+    ]
+    return layers, x
+
+
+def lenet_float_ops(cfg: dict, rng, num_inputs: int = 2):
+    """A LeNet float model as [(kind, weight, bias, stride)] and its inputs.
+
+    Weights and biases are drawn in layer order, weight then bias, from
+    uniform(-1/sqrt(fan_in), 1/sqrt(fan_in)) (PyTorch's default init);
+    then `num_inputs` inputs from uniform(-1, 1, input_shape)."""
+    ops = []
+    c_in = cfg["input_shape"][0]
+
+    def draw(shape, fan_in):
+        bound = 1.0 / np.sqrt(fan_in)
+        return rng.uniform(-bound, bound, size=shape)
+
+    for c_out, k in cfg["convs"]:
+        w = draw((c_out, c_in, k, k), c_in * k * k)
+        ops += [("conv", w, draw((c_out,), c_in * k * k), 1), ("relu", None, None, 1), ("maxpool", None, None, 1)]
+        c_in = c_out
+    ops.append(("flatten", None, None, 1))
+    cols = cfg["flat_in"]
+    for i, rows in enumerate(cfg["denses"]):
+        ops.append(("dense", draw((rows, cols), cols), draw((rows,), cols), 1))
+        if i < len(cfg["denses"]) - 1:
+            ops.append(("relu", None, None, 1))
+        cols = rows
+    xs = [rng.uniform(-1, 1, size=cfg["input_shape"]) for _ in range(num_inputs)]
+    return ops, xs
+
+
+def layer_records(model) -> list:
+    """A quantized Model of either package as [(kind, fields)] numpy records
+    (the layer form of `convert.model_from_layers`): conv filter, bias
+    (padded to a power of two), input_shape, stride; dense matrix and bias
+    (padded); requant the RequantSpec fields; relu, maxpool, flatten none."""
+    kinds = {"Convolution": "conv", "Dense": "dense", "Requant": "requant", "Relu": "relu",
+             "Maxpool2D": "maxpool", "Flatten": "flatten"}
+
+    def arr(t):
+        return np.asarray(t.cpu() if hasattr(t, "cpu") else t, dtype=np.int64)
+
+    out = []
+    for nid in model.forward_order():
+        op = model.nodes[nid].op
+        kind = kinds[type(op).__name__]
+        if kind == "conv":
+            f = dict(filter=arr(op.filter), bias=arr(op.bias), input_shape=tuple(op.input_shape), stride=int(op.stride))
+        elif kind == "dense":
+            f = dict(matrix=arr(op.matrix), bias=arr(op.bias))
+        elif kind == "requant":
+            f = {k: getattr(op.spec, k) for k in REQUANT_FIELDS}
+        else:
+            f = {}
+        out.append((kind, f))
+    return out
+
+
+def numpy_eval(records, x) -> np.ndarray:
+    """The output of a quantized chain of `layer_records`, evaluated with
+    numpy alone: direct integer cross-correlation (the valid window of the
+    padded n x n grid, bias on it, zeros elsewhere), 2 x 2 max, integer
+    matmul and the Requant arithmetic."""
+    v = np.asarray(x, dtype=np.int64)
+    for kind, f in records:
+        if kind == "conv":
+            w, bias = f["filter"], f["bias"]
+            kw_r, kx_r, k, _ = w.shape
+            n = f["input_shape"][1]
+            m = n - k + 1
+            out = np.zeros((bias.shape[0], n, n), dtype=np.int64)
+            for dy in range(k):
+                for dx in range(k):
+                    out[:kw_r, :m, :m] += np.einsum("oc,cyx->oyx", w[:, :, dy, dx], v[:kx_r, dy : dy + m, dx : dx + m])
+            out[:, :m, :m] += bias[:, None, None]
+            s = f["stride"]
+            v = np.ascontiguousarray(out[:, ::s, ::s])
+        elif kind == "dense":
+            xp = np.zeros(f["matrix"].shape[1], dtype=np.int64)
+            xp[: v.size] = v.reshape(-1)
+            v = f["matrix"] @ xp + f["bias"]
+        elif kind == "requant":
+            shift = f["fp_scale"] + f["right_shift"]
+            v = np.clip((v * f["fixed_point_multiplier"] + (1 << (shift - 1))) >> shift, Q_MIN, Q_MAX)
+        elif kind == "relu":
+            v = np.maximum(v, 0)
+        elif kind == "maxpool":
+            c, h, w_ = v.shape
+            v = v.reshape(c, h // 2, 2, w_ // 2, 2).max(axis=(2, 4))
+        else:
+            v = v.reshape(-1)
+    return v
 
 
 def _ext(rng):
