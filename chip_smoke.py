@@ -39,11 +39,10 @@ Phases, each printing one JSON line:
                tests (conv -> requant -> maxpool -> flatten -> dense, a
                stride-2 conv, a tiny LeNet) proved on the card must equal
                the JAX package's proofs frozen in tests/torch_reference.json.
-Then the seconds each phase took, the kernel table line and, last, the
-device line. Arguments, if any, name the path phases to run (slice,
-mlp_4m, cnn, reference; build and kernels always run); with none, all
-run. Any failure raises and exits non-zero; without a CUDA device it exits
-2 and prints no result.
+Then the seconds each phase took, the kernel table line (its `launches`
+are those of the cnn phase, the main path) and, last, the device line.
+Any failure raises and exits non-zero; without a CUDA device it exits 2
+and prints no result.
 """
 
 from __future__ import annotations
@@ -488,37 +487,30 @@ def phase_reference():
         raise AssertionError(f"the card's proofs differ from the JAX package's: {equal}")
 
 
-PATH_PHASES = {"slice": phase_slice, "mlp_4m": phase_mlp_4m, "cnn": phase_cnn, "reference": phase_reference}
-MAIN_PATH = "cnn"  # the main path: the kernels line's `launches` are its
-
-
-def main(argv) -> int:
+def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    names = argv or list(PATH_PHASES)
-    unknown = set(names) - set(PATH_PHASES)
-    if unknown:
-        raise SystemExit(f"unknown phases {sorted(unknown)}; choose from {list(PATH_PHASES)}")
     t0 = time.perf_counter()
     card, stats = phase_build()
     k = phase_kernels(stats["threads_per_block"])
     seconds = {"build_and_kernels": time.perf_counter() - t0}
     paths = []
-    for name in (n for n in PATH_PHASES if n in names):
+    for name, phase in (("slice", phase_slice), ("mlp_4m", phase_mlp_4m), ("cnn", phase_cnn)):
         t1 = time.perf_counter()
-        result = PATH_PHASES[name]()
+        paths.append(phase())
         seconds[name] = time.perf_counter() - t1
-        if result is not None:
-            paths.append(result)
+    t1 = time.perf_counter()
+    phase_reference()
+    seconds["reference"] = time.perf_counter() - t1
     emit({"phase": "elapsed", "seconds": seconds, "total_s": time.perf_counter() - t0})
-    main_path = next((p for p in paths if p["phase"] == MAIN_PATH), paths[0] if paths else None)
+    cnn = paths[-1]  # the main path: the kernels line's `launches` are its
     emit({"kernels": [{
         "name": "poseidon2_compress_level",
         "route": "cuda",
         "source": "deepprove_tpu_torch/csrc/poseidon2_compress.cu",
         "replaces": "deepprove_tpu/hashing/poseidon2_pallas.py:142",
-        "launches": main_path["launches"] if main_path else None,
+        "launches": cnn["launches"],
         "launches_by_path": {p["phase"]: [p["launches_setup"], p["launches_prove"], p["launches_verify"]]
                              for p in paths},
         "max_abs_err": k["max_abs_err"],
@@ -543,4 +535,4 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(main())

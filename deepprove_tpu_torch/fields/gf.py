@@ -10,7 +10,8 @@ pattern of each canonical element (< p):
   * an unsigned compare flips the sign bit of both sides first.
 
 Multiplication splits both operands into 32-bit halves, forms the exact
-128-bit product from four 32x32 partial products, and reduces it with the
+128-bit product (its high word from four 32x32 partial products, its low
+word from one wrapping multiply), and reduces it with the
 classic reduce128 (2^64 = 2^32 - 1, 2^96 = -1 mod p) -- the native-u64 path
 of the JAX package (`gf.py:_mul_u64`). Every op returns canonical values, so
 equality of field arrays is equality of tensors.
@@ -44,13 +45,33 @@ P_I64 = as_i64(P)
 _P_FLIPPED = as_i64(P) ^ _SIGN  # p with its sign bit flipped, for x >= p
 
 
-def _shr(x, k: int):
-    """Logical right shift of u64 bit patterns held in int64."""
-    return (x >> k) & ((1 << (64 - k)) - 1)
+def _const(v: int) -> torch.Tensor:
+    """A 0-dim CPU int64 tensor. torch takes it as a scalar operand on any
+    device; a Python int operand would be wrapped into a tensor anew on
+    every op, which costs host time on every small op."""
+    return torch.tensor(v, dtype=torch.int64)
+
+
+_K1, _K32, _M32_T, _SIGN_T, _EPS_T, _P_T, _P_FLIPPED_T = (
+    _const(v) for v in (1, 32, _M32, _SIGN, EPSILON, P_I64, _P_FLIPPED)
+)
+
+
+def _shr32(x):
+    """Logical right shift by 32 of u64 bit patterns held in int64."""
+    return torch.bitwise_right_shift(x, _K32) & _M32_T
+
+
+def _shl32(x):
+    return torch.bitwise_left_shift(x, _K32)
+
+
+def _shl1(x):
+    return torch.bitwise_left_shift(x, _K1)
 
 
 def _flip(x):
-    return x ^ _SIGN
+    return x ^ _SIGN_T
 
 
 def _ult(a, b):
@@ -60,7 +81,7 @@ def _ult(a, b):
 
 def _canon_once(x):
     """x - p where x >= p (unsigned), for x < 2p."""
-    return torch.where(_flip(x) >= _P_FLIPPED, x - P_I64, x)
+    return torch.where(_flip(x) >= _P_FLIPPED_T, x - _P_T, x)
 
 
 # ---------------------------------------------------------------------------
@@ -73,52 +94,76 @@ def add(a, b):
     if isinstance(b, int):
         b, pmb = as_i64(b), as_i64(P - b)
     else:
-        pmb = P_I64 - b  # p - b, in [1, p]
+        pmb = _P_T - b  # p - b, in [1, p]
     return torch.where(_ult(a, pmb), a + b, a - pmb)
 
 
 def sub(a, b):
     d = a - b
-    return torch.where(_ult(a, b), d + P_I64, d)
+    return torch.where(_ult(a, b), d + _P_T, d)
 
 
 def neg(a):
-    return torch.where(a == 0, a, P_I64 - a)
+    return torch.where(a == 0, a, _P_T - a)
 
 
 def _split(x):
     if isinstance(x, int):
         return x & _M32, x >> 32
-    return x & _M32, _shr(x, 32)
+    return x & _M32_T, _shr32(x)
 
 
 def _reduce128(lo, hi):
-    hi_hi = _shr(hi, 32)
-    hi_lo = hi & _M32
+    """hi * 2^64 + lo mod p, as a u64 below 2^64 (< 2p, not yet canonical)."""
+    hi_hi = _shr32(hi)
+    hi_lo = hi & _M32_T
     t0 = lo - hi_hi
-    t0 = torch.where(_ult(lo, hi_hi), t0 - EPSILON, t0)
-    t1 = (hi_lo << 32) - hi_lo  # hi_lo * EPSILON, exact
+    t0 = torch.where(_ult(lo, hi_hi), t0 - _EPS_T, t0)
+    t1 = _shl32(hi_lo) - hi_lo  # hi_lo * EPSILON, exact
     t2 = t0 + t1
-    t2 = torch.where(_ult(t2, t1), t2 + EPSILON, t2)
-    return _canon_once(t2)
+    return torch.where(_ult(t2, t1), t2 + _EPS_T, t2)
 
 
 def mul(a, b):
     """a * b mod p; `b` may be a tensor or a canonical python int."""
+    return _canon_once(mul_lazy(a, b))
+
+
+def mul_lazy(a, b):
+    """a * b mod p as a u64 below 2^64 that may still be >= p: a valid
+    operand of another `mul_lazy` or `mul` (any u64 operands), not of
+    `add` or `sub`."""
     a_lo, a_hi = _split(a)
     b_lo, b_hi = _split(b)
     ll = a_lo * b_lo
     lh = a_lo * b_hi
     hl = a_hi * b_lo
     hh = a_hi * b_hi
-    t = _shr(ll, 32) + (lh & _M32) + (hl & _M32)  # < 3 * 2^32
-    lo = (ll & _M32) | (t << 32)
-    hi = hh + _shr(lh, 32) + _shr(hl, 32) + (t >> 32)
+    t = _shr32(ll) + (lh & _M32_T) + (hl & _M32_T)  # < 3 * 2^32
+    lo = a * (as_i64(b) if isinstance(b, int) else b)  # the low 64 bits, wrapping
+    hi = hh + _shr32(lh) + _shr32(hl) + torch.bitwise_right_shift(t, _K32)
     return _reduce128(lo, hi)
 
 
+def mul_small(a, c: int):
+    """a * c mod p for a python int 0 <= c < 2^31: each 32-bit half times
+    c stays below 2^63, so `from_halves` reduces it."""
+    lo, hi = split_halves(a)
+    return from_halves(hi * c, lo * c)
+
+
 def square(a):
-    return mul(a, a)
+    return _canon_once(square_lazy(a))
+
+
+def square_lazy(a):
+    """`mul_lazy(a, a)` with the two equal cross products formed once."""
+    a_lo, a_hi = _split(a)
+    ll = a_lo * a_lo
+    lh = a_lo * a_hi
+    t = _shr32(ll) + _shl1(lh & _M32_T)  # < 3 * 2^32
+    hi = a_hi * a_hi + _shl1(_shr32(lh)) + torch.bitwise_right_shift(t, _K32)
+    return _reduce128(a * a, hi)
 
 
 def pow_const(a, e: int):
@@ -150,9 +195,21 @@ def sum_axis(a, dim: int = -1):
     and recombined as hi * 2^32 + lo mod p.
     """
     assert a.shape[dim] < (1 << 31)
-    lo = (a & _M32).sum(dim)
-    hi = _shr(a, 32).sum(dim)
-    return add(mul(hi, 1 << 32), lo)  # lo, hi < 2^63 < p: already canonical
+    lo, hi = split_halves(a)
+    return from_halves(hi.sum(dim), lo.sum(dim))
+
+
+def split_halves(a):
+    """(low, high) 32-bit halves of u64 bit patterns, each as an int64 >= 0."""
+    return a & _M32_T, _shr32(a)
+
+
+def from_halves(hi, lo):
+    """hi * 2^32 + lo mod p for int64 0 <= hi, lo < 2^63: hi * 2^32 =
+    (hi mod 2^32) * 2^32 + (hi >> 32) * 2^64, and 2^64 = EPSILON mod p.
+    The first term is at most 2^64 - 2^32 < p and the others are below
+    2^63 < p, so all three are canonical."""
+    return add(add(_shl32(hi & _M32_T), torch.bitwise_right_shift(hi, _K32) * _EPS_T), lo)
 
 
 def from_u64(arr, device="cpu") -> torch.Tensor:
@@ -221,7 +278,7 @@ def ext_mul(a: GF2, b: GF2) -> GF2:
     t0 = mul(a.a0, b.a0)
     t1 = mul(a.a1, b.a1)
     t2 = mul(add(a.a0, a.a1), add(b.a0, b.a1))
-    return GF2(add(t0, mul(t1, EXT_W)), sub(t2, add(t0, t1)))
+    return GF2(add(t0, mul_small(t1, EXT_W)), sub(t2, add(t0, t1)))
 
 
 def ext_mul_base(a: GF2, b) -> GF2:

@@ -38,51 +38,50 @@ def compress_host(left: np.ndarray, right: np.ndarray) -> np.ndarray:
 
 
 def _sbox(x):
-    x2 = gf.square(x)
-    x4 = gf.square(x2)
-    return gf.mul(gf.mul(x4, x2), x)
+    x2 = gf.square_lazy(x)
+    x4 = gf.square_lazy(x2)
+    return gf.mul(gf.mul_lazy(x4, x2), x)
+
+
+def _mds_light(x):
+    """The external linear layer's integer combination on an (8, N) state
+    of int64 values without reduction: M4 on each 4-chunk, then each lane
+    plus the sum of its column across chunks (coefficients at most 21)."""
+    x = x.reshape(2, 4, -1)
+    s0, s1, s2, s3 = x[:, 0], x[:, 1], x[:, 2], x[:, 3]
+    t01 = s0 + s1
+    t23 = s2 + s3
+    t0123 = t01 + t23
+    t01123 = t0123 + s1
+    t01233 = t0123 + s3
+    y = torch.stack([t01123 + t01, t01123 + 2 * s2, t01233 + t23, t01233 + 2 * s0], dim=1)  # (2, 4, N)
+    return (y + (y[0] + y[1])).reshape(8, -1)
 
 
 def _ext_lin(st):
-    """MDS-light external linear layer on an (8, N) state: M4 on each
-    4-chunk, then each lane plus the sum of its column across chunks."""
-    x = st.reshape(2, 4, -1)
-    s0, s1, s2, s3 = x[:, 0], x[:, 1], x[:, 2], x[:, 3]
-    t01 = gf.add(s0, s1)
-    t23 = gf.add(s2, s3)
-    t0123 = gf.add(t01, t23)
-    t01123 = gf.add(t0123, s1)
-    t01233 = gf.add(t0123, s3)
-    y = torch.stack(
-        [
-            gf.add(t01123, t01),
-            gf.add(t01123, gf.add(s2, s2)),
-            gf.add(t01233, t23),
-            gf.add(t01233, gf.add(s0, s0)),
-        ],
-        dim=1,
-    )  # (2, 4, N)
-    tot = gf.add(y[0], y[1])
-    return torch.cat([gf.add(y[0], tot), gf.add(y[1], tot)])
+    """MDS-light on an (8, N) field state: `_mds_light` of the 32-bit
+    halves (each combination stays below 21 * 2^32), recombined mod p."""
+    lo, hi = gf.split_halves(st)
+    return gf.from_halves(_mds_light(hi), _mds_light(lo))
 
 
 def _lanes(rows, device) -> torch.Tensor:
-    """Per-lane constants as an (8, 1) int64 tensor (u64 bit patterns)."""
-    return torch.tensor([[gf.as_i64(v)] for v in rows], dtype=torch.int64, device=device)
+    """Per-lane constants as an (R, 8, 1) int64 tensor (u64 bit patterns)."""
+    return torch.tensor([[[gf.as_i64(v)] for v in row] for row in rows], dtype=torch.int64, device=device)
 
 
 def permute_planes(s: list) -> list:
     """Poseidon2 over 8 SEPARATE equal-shape int64 planes (plane-major state)."""
     st = _ext_lin(torch.stack(list(s)))
     dev = st.device
-    for rc in _INIT_RC:
-        st = _ext_lin(_sbox(gf.add(st, _lanes(rc, dev))))
-    diag = _lanes(_DIAG, dev)
+    init, term, (diag,) = _lanes(_INIT_RC, dev), _lanes(_TERM_RC, dev), _lanes([_DIAG], dev)
+    for rc in init:
+        st = _ext_lin(_sbox(gf.add(st, rc)))
     for rc in _INT_RC:
         st = torch.cat([_sbox(gf.add(st[:1], rc)), st[1:]])
         st = gf.add(gf.mul(st, diag), gf.sum_axis(st, 0))
-    for rc in _TERM_RC:
-        st = _ext_lin(_sbox(gf.add(st, _lanes(rc, dev))))
+    for rc in term:
+        st = _ext_lin(_sbox(gf.add(st, rc)))
     return list(st)
 
 

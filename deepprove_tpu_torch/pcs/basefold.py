@@ -144,16 +144,28 @@ def _encode(params: BasefoldParams, evals) -> tuple:
 
 def commit(params: BasefoldParams, evals: torch.Tensor) -> CommitmentWithWitness:
     """Commit to one base polynomial given its little-endian hypercube evals."""
-    lg_n = evals.shape[0].bit_length() - 1
-    assert lg_n <= params.max_message_size_log
-    if lg_n <= params.basecode_msg_size_log:
-        tree = MerkleTree.from_leaves(evals)
-        cm = BasefoldCommitment(root=tree.root, num_vars=lg_n, is_trivial=True)
-        return CommitmentWithWitness(cm, codeword=evals, bh_evals=[evals], tree=tree)
-    bh, codeword = _encode(params, evals)
-    tree = MerkleTree.from_leaves(codeword)
-    cm = BasefoldCommitment(root=tree.root, num_vars=lg_n)
-    return CommitmentWithWitness(cm, codeword=codeword, bh_evals=[bh], tree=tree)
+    return commit_many(params, [evals])[0]
+
+
+def commit_many(params: BasefoldParams, evals_list) -> list:
+    """`commit` of each polynomial; the Merkle trees of codewords of one
+    size are built together (`MerkleTree.from_leaves_many`)."""
+    words = []
+    for evals in evals_list:
+        lg_n = evals.shape[0].bit_length() - 1
+        assert lg_n <= params.max_message_size_log
+        if lg_n <= params.basecode_msg_size_log:
+            words.append((lg_n, True, evals, evals))
+        else:
+            words.append((lg_n, False, *_encode(params, evals)))
+    trees = MerkleTree.from_leaves_many([codeword for *_, codeword in words])
+    return [
+        CommitmentWithWitness(
+            BasefoldCommitment(root=tree.root, num_vars=lg_n, is_trivial=trivial),
+            codeword=codeword, bh_evals=[bh], tree=tree,
+        )
+        for (lg_n, trivial, bh, codeword), tree in zip(words, trees)
+    ]
 
 
 def write_commitment(cm: BasefoldCommitment, transcript):

@@ -4,7 +4,8 @@ As in the JAX package's `pcs/merkle.py` (Poseidon half):
   * leaf-pair digest = hash_or_noop packing: a pair of base elements
     (a, b) -> [a, b, 0, 0]; a pair of ext elements -> [a0, a1, b0, b1];
   * inner nodes = two_to_one compression, one whole level per call of
-    `poseidon2_cuda.compress_level` (the CUDA kernel on the card).
+    `poseidon2_cuda.compress_level` (the CUDA kernel on the card), the
+    levels of equal-size trees built together in one call.
 
 Levels are plane-major int64 (4, M) tensors, row e holding element e of
 every digest. Roots are 4-tuples of ints; host paths are (Q, depth, 4)
@@ -41,12 +42,16 @@ def leaf_digests(leaves) -> torch.Tensor:
     return torch.stack([leaves[0::2], leaves[1::2], z, z])
 
 
-def tree_levels(leaves) -> list:
-    """Every digest level from the leaf-pair digests up to the (4, 1) root."""
-    levels = [leaf_digests(leaves)]
-    while levels[-1].shape[1] > 1:
+def tree_levels_many(leaves_list) -> list:
+    """Every digest level, from the leaf-pair digests up to the (4, 1) root,
+    of each of several equal-length leaf arrays. The trees are hashed side
+    by side, one `compress_level` call a level for all of them: each tree's
+    level width stays even until its root, so no pair straddles two trees."""
+    b = len(leaves_list)
+    levels = [torch.cat([leaf_digests(leaves) for leaves in leaves_list], dim=1)]
+    while levels[-1].shape[1] > b:
         levels.append(compress_level(levels[-1]))
-    return levels
+    return [[lvl.reshape(4, b, -1)[:, i] for lvl in levels] for i in range(b)]
 
 
 @dataclasses.dataclass
@@ -58,7 +63,20 @@ class MerkleTree:
 
     @staticmethod
     def from_leaves(leaves) -> "MerkleTree":
-        return MerkleTree(leaves=leaves, levels=tree_levels(leaves))
+        return MerkleTree.from_leaves_many([leaves])[0]
+
+    @staticmethod
+    def from_leaves_many(leaves_list) -> list:
+        """One tree per leaf array; arrays of one length are hashed together
+        (`tree_levels_many`)."""
+        by_len: dict = {}
+        for i, leaves in enumerate(leaves_list):
+            by_len.setdefault(leaves.shape[0], []).append(i)
+        trees = [None] * len(leaves_list)
+        for idx in by_len.values():
+            for i, levels in zip(idx, tree_levels_many([leaves_list[i] for i in idx])):
+                trees[i] = MerkleTree(leaves=leaves_list[i], levels=levels)
+        return trees
 
     @property
     def root(self) -> Digest:

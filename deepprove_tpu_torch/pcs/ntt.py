@@ -136,12 +136,10 @@ def fft(values, lg_n: int | None = None):
     return _butterflies(bit_reverse(values, lg_n), lg_n, _root_rows(lg_n, values.device))
 
 
-def ifft(values, lg_n: int | None = None):
-    """Inverse cyclic FFT: y[t] = (1/N) sum_k v[k] omega^(-tk) (natural order)."""
-    if lg_n is None:
-        lg_n = values.shape[0].bit_length() - 1
-    out = _butterflies(bit_reverse(values, lg_n), lg_n, _root_rows(lg_n, values.device, inverse=True))
-    return _map_planes(out, lambda p: gf.mul(p, _n_inv(lg_n)))
+def ifft(values):
+    """Inverse cyclic FFT of one row: y[t] = (1/N) sum_k v[k] omega^(-tk)
+    (natural order); `fft_rows` of a single row."""
+    return fft_rows(values.reshape(1, -1), inverse=True).reshape(-1)
 
 
 def fft_rows(values2d, inverse: bool = False):

@@ -32,17 +32,18 @@ class CommitmentContext:
             for p in polys.values():
                 max_poly_len = max(max_poly_len, p.shape[0])
         self.params = basefold.setup(max(1, (max_poly_len - 1).bit_length()), **pcs_kw)
-        self.model_comms = {}
+        keys, polys = [], []
         for node_id in sorted(model_polys):
-            self.model_comms[node_id] = {
-                pid: (basefold.commit(self.params, poly), poly)
-                for pid, poly in sorted(model_polys[node_id].items())
-            }
-        self.table_comms = {}
-        for tt in sorted(table_types):
-            cols = tt.committed_columns()
-            if cols is not None:
-                self.table_comms[tt] = (basefold.commit(self.params, cols), cols)
+            for pid, poly in sorted(model_polys[node_id].items()):
+                keys.append((node_id, pid))
+                polys.append(poly)
+        table_cols = {tt: tt.committed_columns() for tt in sorted(table_types)}
+        table_cols = {tt: cols for tt, cols in table_cols.items() if cols is not None}
+        comms = iter(self.commit_many(polys + list(table_cols.values())))
+        self.model_comms = {}
+        for (node_id, pid), poly in zip(keys, polys):
+            self.model_comms.setdefault(node_id, {})[pid] = (next(comms), poly)
+        self.table_comms = {tt: (next(comms), cols) for tt, cols in table_cols.items()}
 
     @property
     def trivial_num_vars(self) -> int:
@@ -56,9 +57,10 @@ class CommitmentContext:
         for tt in sorted(self.table_comms):
             basefold.write_commitment(self.table_comms[tt][0].commitment, transcript)
 
-    def commit(self, evals):
-        """A prove-time (witness) commitment at the context's parameters."""
-        return basefold.commit(self.params, evals)
+    def commit_many(self, evals_list) -> list:
+        """Commitments at the context's parameters, the trees of equal-size
+        polynomials built together."""
+        return basefold.commit_many(self.params, evals_list)
 
 
 @dataclasses.dataclass

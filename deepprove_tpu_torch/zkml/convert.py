@@ -1,12 +1,11 @@
 """Carry a model's weights across from the JAX package.
 
-`dense_chain_from_arrays` builds the port's Dense-chain `Model` from the
-numpy (matrix, bias) int64 arrays a JAX-package model holds;
-`mlp_chain_from_arrays` builds the Dense -> Requant -> ReLU chain of
-`bench.py`'s MLPs from the same arrays and each Requant's spec fields, so
-that both packages prove the very same model. `model_from_layers` builds
-any chain of the port's layers from [(kind, fields)] numpy records (a
-JAX-package Model's layers), and `float_model_from_ops` a FloatModel from
+`model_from_layers` builds any chain of the port's layers from
+[(kind, fields)] numpy records (a JAX-package Model's layers);
+`dense_chain_from_arrays` (Dense only) and `mlp_chain_from_arrays`
+(Dense -> Requant -> ReLU, as `bench.py`'s MLPs) build their records from
+(matrix, bias) int64 arrays, so that both packages prove the very same
+model. `float_model_from_ops` builds a FloatModel from
 [(kind, weight, bias, stride)] float arrays.
 """
 
@@ -30,48 +29,6 @@ from .quantization import RequantSpec
 SPEC_FIELDS = ("right_shift", "fixed_point_multiplier", "fp_scale", "multiplier", "intermediate_bit_size")
 
 
-def _dense(matrix, bias, dev) -> Dense:
-    return Dense(
-        matrix=torch.from_numpy(np.asarray(matrix, dtype=np.int64)).to(dev),
-        bias=torch.from_numpy(np.asarray(bias, dtype=np.int64)).to(dev),
-    )
-
-
-def dense_chain_from_arrays(layers, device="cuda") -> Model:
-    """[(matrix (rows, cols), bias (rows,)), ...] -> a chain of Dense nodes."""
-    dev = device_mod.resolve(device)
-    model = Model()
-    for matrix, bias in layers:
-        model.add_chain(_dense(matrix, bias, dev))
-    return model
-
-
-def bench_requant_spec(dense: Dense, in_dim: int) -> RequantSpec:
-    """The Requant that `bench.py`'s MLPs put after a Dense of `in_dim`
-    inputs: multiplier 1 / 2^(BIT_LEN - 1) / in_dim."""
-    return RequantSpec.from_multiplier(1.0 / (1 << (Q.BIT_LEN - 1)) / in_dim, dense.output_bitsize())
-
-
-def mlp_chain_from_arrays(layers, requant_specs=None, device="cuda") -> Model:
-    """[(matrix, bias), ...] -> Dense -> Requant -> ReLU per layer.
-
-    requant_specs: one mapping of the RequantSpec fields per layer (a
-    JAX-package spec's `dataclasses.asdict`); None derives them as
-    `bench.py` does (`bench_requant_spec`)."""
-    dev = device_mod.resolve(device)
-    model = Model()
-    for i, (matrix, bias) in enumerate(layers):
-        dense = _dense(matrix, bias, dev)
-        if requant_specs is None:
-            spec = bench_requant_spec(dense, np.asarray(matrix).shape[1])
-        else:
-            spec = RequantSpec(**{f: requant_specs[i][f] for f in SPEC_FIELDS})
-        model.add_chain(dense)
-        model.add_chain(Requant(spec=spec))
-        model.add_chain(Relu())
-    return model
-
-
 def _tensor(a, dev) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(dev)
 
@@ -82,7 +39,8 @@ def model_from_layers(layers, device="cuda") -> Model:
       dense: matrix (rows, cols), bias (rows,);
       requant: the RequantSpec fields, or only `multiplier`, the bit size
         then taken from the layer before (`output_bitsize`);
-      relu, maxpool, flatten: no fields."""
+      maxpool: input_shape (c, h, w);
+      relu, flatten: no fields."""
     dev = device_mod.resolve(device)
     model, prev = Model(), None
     for kind, f in layers:
@@ -92,18 +50,41 @@ def model_from_layers(layers, device="cuda") -> Model:
                 input_shape=tuple(f["input_shape"]), stride=int(f["stride"]),
             )
         elif kind == "dense":
-            op = _dense(f["matrix"], f["bias"], dev)
+            op = Dense(matrix=_tensor(f["matrix"], dev), bias=_tensor(f["bias"], dev))
         elif kind == "requant":
             if set(f) == {"multiplier"}:
                 spec = RequantSpec.from_multiplier(f["multiplier"], prev.output_bitsize())
             else:
                 spec = RequantSpec(**{k: f[k] for k in SPEC_FIELDS})
             op = Requant(spec=spec)
+        elif kind == "maxpool":
+            op = Maxpool2D(input_shape=tuple(f["input_shape"]))
         else:
-            op = {"relu": Relu, "maxpool": Maxpool2D, "flatten": Flatten}[kind]()
+            op = {"relu": Relu, "flatten": Flatten}[kind]()
         model.add_chain(op)
         prev = op
     return model
+
+
+def dense_chain_from_arrays(layers, device="cuda") -> Model:
+    """[(matrix (rows, cols), bias (rows,)), ...] -> a chain of Dense nodes."""
+    return model_from_layers([("dense", dict(matrix=m, bias=b)) for m, b in layers], device)
+
+
+def mlp_chain_from_arrays(layers, requant_specs=None, device="cuda") -> Model:
+    """[(matrix, bias), ...] -> Dense -> Requant -> ReLU per layer.
+
+    requant_specs: one mapping of the RequantSpec fields per layer (a
+    JAX-package spec's `dataclasses.asdict`); None derives them as
+    `bench.py` does, from the multiplier 1 / 2^(BIT_LEN - 1) / in_dim."""
+    records = []
+    for i, (matrix, bias) in enumerate(layers):
+        if requant_specs is None:
+            spec = {"multiplier": 1.0 / (1 << (Q.BIT_LEN - 1)) / np.asarray(matrix).shape[1]}
+        else:
+            spec = {f: requant_specs[i][f] for f in SPEC_FIELDS}
+        records += [("dense", dict(matrix=matrix, bias=bias)), ("requant", spec), ("relu", {})]
+    return model_from_layers(records, device)
 
 
 def float_model_from_ops(input_shape, ops) -> FloatModel:

@@ -216,7 +216,8 @@ def quantize(model: FloatModel, strategy: str = "absolute_max", calibration_inpu
             produced[i] = (q.add_node(Relu(), [edge_of(src)]), scale_of(src), shape_of(src))
         elif isinstance(op, FMaxpool):
             c, h, w = shape_of(src)
-            produced[i] = (q.add_node(Maxpool2D(), [edge_of(src)]), scale_of(src), (c, h // 2, w // 2))
+            pool = Maxpool2D(input_shape=(c, h, w))
+            produced[i] = (q.add_node(pool, [edge_of(src)]), scale_of(src), (c, h // 2, w // 2))
         elif isinstance(op, FFlatten):
             shape = (int(np.prod(shape_of(src))),)
             produced[i] = (q.add_node(Flatten(), [edge_of(src)]), scale_of(src), shape)

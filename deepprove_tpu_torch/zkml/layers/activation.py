@@ -50,7 +50,7 @@ class Relu:
         counts = count_elements(inp + out * COLUMN_SEPARATOR)
         cols = [Q.to_field(inp), Q.to_field(out)]
         wit = LogUpWitness(
-            commits=[(ctx.commitment_ctx.commit(c), c) for c in cols],
+            polys=cols,
             column_evals=cols, columns_per_instance=2, table_type=TableType("relu"),
         )
         return [wit], {TableType("relu"): counts}

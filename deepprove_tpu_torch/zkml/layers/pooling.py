@@ -8,8 +8,11 @@ diff_k(x) = 0 (some diff is 0, so the max is attained), batched with the
 diff and output claim-tying terms into one degree-5 sumcheck whose
 products take the coefficients 1, bc, ..., bc^5. The previous layer's
 claim substitutes a fresh challenge for the two kernel-parity bits: point
-= [r1] ++ zc[:log W - 1] ++ [r1] ++ zc[log W - 1:]. The JAX package uses
-the one challenge r1 for both parity bits, and the port does the same.
+= [r1] ++ zc[:gap] ++ [r1] ++ zc[gap:], gap = log W - 1 for the padded
+input width W. The JAX package uses the one challenge r1 for both parity
+bits, and the port does the same. The JAX verifier takes the gap from the
+proof; the port's layer knows its input shape, so its verifier derives the
+gap and rejects a proof that names another.
 """
 
 from __future__ import annotations
@@ -44,8 +47,15 @@ def parity_multiplicands(r1: ExtPair, r2: ExtPair) -> list[ExtPair]:
     return [host.ext_mul(omr1, omr2), host.ext_mul(omr1, r2), host.ext_mul(r1, omr2), host.ext_mul(r1, r2)]
 
 
+def variable_gap(width: int) -> int:
+    """Where the column parity bit sits in the input claim's point: after
+    the log W - 1 output-column variables of the padded width W."""
+    return ceil_log2(next_pow2(width)) - 1
+
+
 @dataclasses.dataclass
 class Maxpool2D:
+    input_shape: tuple  # (c, h, w) of the tensor it pools
     shared_logup = True  # its lookups go into the consolidated logup proofs
 
     @property
@@ -54,6 +64,7 @@ class Maxpool2D:
 
     def evaluate(self, inputs: list[Tensor]) -> list[Tensor]:
         x = inputs[0].data
+        assert tuple(x.shape) == tuple(self.input_shape), f"maxpool input {tuple(x.shape)} != {self.input_shape}"
         c, h, w = x.shape
         return [Tensor(x.reshape(c, h // 2, 2, w // 2, 2).amax(dim=(2, 4)))]
 
@@ -62,7 +73,7 @@ class Maxpool2D:
 
     def step_info(self, node_id: int, aux):
         aux.tables.add(TableType("range"))
-        return PoolingCtx(node_id=node_id)
+        return PoolingCtx(node_id=node_id, gap=variable_gap(self.input_shape[2]))
 
     @staticmethod
     def diffs(inp: torch.Tensor, out: torch.Tensor) -> list[torch.Tensor]:
@@ -76,10 +87,9 @@ class Maxpool2D:
         counts = count_elements(torch.cat(cols))
         col_fields = [Q.to_field(c) for c in cols]
         out_field = Q.to_field(_pad3(out).reshape(-1))
-        commit = ctx.commitment_ctx.commit
-        commits = [(commit(c), c) for c in col_fields] + [(commit(out_field), out_field)]
         wit = LogUpWitness(
-            commits=commits, column_evals=col_fields, columns_per_instance=1, table_type=TableType("range"),
+            polys=col_fields + [out_field], column_evals=col_fields, columns_per_instance=1,
+            table_type=TableType("range"),
         )
         return [wit], {TableType("range"): counts}
 
@@ -119,7 +129,7 @@ class Maxpool2D:
         mults = dt.push(parity_multiplicands(r1_pair, r1_pair) + [r1_pair])
         diff_evals, output_eval = zerocheck_evals[:4], zerocheck_evals[4]
         in_eval = gf.ext_sum_axis(gf.ext_mul(mults[:4], gf.ext_sub(output_eval, diff_evals)), 0)
-        gap = ceil_log2(next_pow2(step_data.inputs[0].shape[2])) - 1
+        gap = variable_gap(self.input_shape[2])
         r1 = mults[4:]
         point = gf.ext_concatenate([r1, zc_point[:gap], r1, zc_point[gap:]])
         prover.push_proof(
@@ -142,6 +152,7 @@ class PoolingProof:
 @dataclasses.dataclass
 class PoolingCtx:
     node_id: int
+    gap: int  # `variable_gap` of the input width
 
     @property
     def is_provable(self) -> bool:
@@ -181,5 +192,6 @@ class PoolingCtx:
         in_eval = (0, 0)
         for m, ev in zip(parity_multiplicands(r1, r2), proof.zerocheck_evals[:4]):
             in_eval = host.ext_add(in_eval, host.ext_mul(m, host.ext_sub(output_eval, ev)))
-        gap = proof.variable_gap
+        assert proof.variable_gap == self.gap, "pooling variable gap"
+        gap = self.gap
         return [Claim(point=[r1] + list(zc_point[:gap]) + [r2] + list(zc_point[gap:]), eval=in_eval)]

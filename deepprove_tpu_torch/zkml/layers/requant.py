@@ -65,14 +65,13 @@ class Requant:
         clamp_counts = count_elements(clamp_in + clamp_out * COLUMN_SEPARATOR)
         clamp_cols = [Q.to_field(clamp_in), Q.to_field(clamp_out)]
         chunk_cols = [Q.to_field(c) for c in chunks]
-        commit = ctx.commitment_ctx.commit
         wits = [
             LogUpWitness(
-                commits=[(commit(c), c) for c in clamp_cols], column_evals=clamp_cols,
+                polys=clamp_cols, column_evals=clamp_cols,
                 columns_per_instance=2, table_type=self._clamp_table(),
             ),
             LogUpWitness(
-                commits=[(commit(c), c) for c in chunk_cols], column_evals=chunk_cols,
+                polys=chunk_cols, column_evals=chunk_cols,
                 columns_per_instance=1, table_type=TableType("range"),
             ),
         ]

@@ -151,13 +151,16 @@ class ChallengeStorage:
 
 @dataclasses.dataclass
 class LogUpWitness:
-    """Committed columns and their evaluations (base tensors on the device)."""
+    """Polynomials to commit and column evaluations (base tensors on the
+    device). `generate_lookup_witnesses` commits the polys of every witness
+    at once and fills in `commits`."""
 
-    commits: list  # [(CommitmentWithWitness, evals)]
+    polys: list
     column_evals: list
     columns_per_instance: int
     table_type: TableType
     multiplicities: torch.Tensor | None = None  # table witnesses only
+    commits: list | None = None  # [(CommitmentWithWitness, poly)], in `polys` order
 
     def get_logup_input(self, storage: ChallengeStorage):
         from ..lookup import logup
@@ -176,7 +179,8 @@ def count_elements(values: torch.Tensor) -> dict:
 
 def generate_lookup_witnesses(trace, ctx, transcript):
     """Walk the trace forward collecting each node's lookup witnesses and
-    element counts, commit every table's multiplicities, then derive the
+    element counts, build every table's multiplicities, commit the polys of
+    all the witnesses together (`commit_many`), then derive the
     challenge storage from `transcript` (a session, on the prover's side).
     Returns (storage, {node id: [LogUpWitness]}, [table LogUpWitness])."""
     element_count: dict = {}
@@ -220,15 +224,18 @@ def generate_lookup_witnesses(trace, ctx, transcript):
                 mult[i] = counts.get(val, 0)
         device = ctx.device
         mult_gf = gf.from_u64(mult, device)
-        commit = ctx.commitment_ctx.commit(mult_gf)
         table_witnesses.append(
             LogUpWitness(
-                commits=[(commit, mult_gf)],
+                polys=[mult_gf],
                 column_evals=[gf.from_u64(c, device) for c in cols],
                 columns_per_instance=len(cols),
                 table_type=tt,
                 multiplicities=mult_gf,
             )
         )
+    every = [w for ws in logup_witnesses.values() for w in ws] + table_witnesses
+    comms = iter(ctx.commitment_ctx.commit_many([p for w in every for p in w.polys]))
+    for w in every:
+        w.commits = [(next(comms), p) for p in w.polys]
     storage = ChallengeStorage.initialise(list(element_count), transcript)
     return storage, logup_witnesses, table_witnesses

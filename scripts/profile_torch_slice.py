@@ -252,10 +252,10 @@ def profile_path(cs, path) -> None:
         (pooling.Maxpool2D, "prove", "maxpool_layer"),
         (commit.CommitmentProver, "prove", "commit_open"),
         (sc_prover, "prove_device", "sumcheck"),
-        (basefold, "commit", "basefold_commit"),
+        (basefold, "commit_many", "basefold_commit"),
         (basefold, "_commit_phase_session", "basefold_commit_phase"),
         (basefold, "_query_openings", "basefold_query_openings"),
-        (merkle.MerkleTree, "from_leaves", "merkle_tree"),
+        (merkle.MerkleTree, "from_leaves_many", "merkle_tree"),
         (glue, "materialize", "materialize"),
     ]
     originals = [(o, n, _wrap(o, n, table, k)) for o, n, k in targets]

@@ -119,3 +119,15 @@ def test_batch_open_roundtrip_and_rejection():
     bad[2].value = ((bad[2].value[0] + 1) % P, bad[2].value[1])
     with pytest.raises(AssertionError):
         basefold.batch_verify(params, cms, pts, bad, proof, BasicTranscript(b"bo"), device="cpu")
+
+
+def test_commit_many_equals_commit_one_at_a_time():
+    rng = np.random.default_rng(34)
+    params = basefold.setup(5, num_queries=7, basecode_msg_size_log=2)
+    evals = [gf.from_u64(rng.integers(0, P, size=n, dtype=np.uint64)) for n in (32, 4, 32, 16, 4)]
+    many = basefold.commit_many(params, evals)
+    for got, e in zip(many, evals, strict=True):
+        one = basefold.commit(params, e)
+        assert got.commitment == one.commitment
+        assert gf.to_u64(got.codeword).tolist() == gf.to_u64(one.codeword).tolist()
+    assert [c.commitment.is_trivial for c in many] == [False, True, False, False, True]

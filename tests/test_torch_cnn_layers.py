@@ -122,7 +122,8 @@ def test_maxpool_evaluate_and_diffs_equal_jax():
     from deepprove_tpu.zkml.tensor import Tensor as JaxTensor
 
     x = np.random.default_rng(58).integers(R.Q_MIN, R.Q_MAX + 1, size=(3, 8, 8)).astype(np.int64)
-    out = Maxpool2D().evaluate([Tensor(torch.from_numpy(x))])[0].data
+    pool = Maxpool2D(input_shape=x.shape)
+    out = pool.evaluate([Tensor(torch.from_numpy(x))])[0].data
     jout = JaxMaxpool().evaluate([JaxTensor(x)])[0].data
     np.testing.assert_array_equal(out.numpy(), jout)
     diffs = Maxpool2D.diffs(torch.from_numpy(x), out)
@@ -130,7 +131,7 @@ def test_maxpool_evaluate_and_diffs_equal_jax():
     for d, jd in zip(diffs, jdiffs, strict=True):
         np.testing.assert_array_equal(d.numpy(), jd)
     assert min(int(d.min()) for d in diffs) == 0
-    layout = [(n, k, t.name()) for n, k, t in Maxpool2D().shared_lookup_layout()]
+    layout = [(n, k, t.name()) for n, k, t in pool.shared_lookup_layout()]
     assert layout == [(n, k, t.name()) for n, k, t in JaxMaxpool().shared_lookup_layout()] == [(4, 1, "Range")]
 
 

@@ -5,8 +5,9 @@ test_torch_reference.py): (a) conv -> requant -> maxpool -> flatten ->
 dense, (b) a stride-2 conv, (c) a tiny LeNet-shaped float model quantized
 with the inference observer. Each proof must equal the JAX one field for
 field; the port's verifier accepts it and rejects a changed output, a
-changed first clearing message, a changed delegation round message and a
-changed pooling zerocheck evaluation. Tolerance: exact equality."""
+changed first clearing message, a changed delegation round message, a
+changed pooling zerocheck evaluation and a pooling proof that names another
+variable gap than its layer's input width gives. Tolerance: exact equality."""
 
 import copy
 
@@ -120,7 +121,7 @@ def _pool_node(proof):
     return min(nid for nid, p in proof.steps.items() if type(p).__name__ == "PoolingProof")
 
 
-@pytest.mark.parametrize("where", ["clearing", "delegation_inv", "delegation_fft", "pool_zerocheck"])
+@pytest.mark.parametrize("where", ["clearing", "delegation_inv", "delegation_fft", "pool_zerocheck", "pool_gap"])
 def test_verifier_rejects_tampered_proof(proved, where):
     name = "strided" if where == "clearing" else "conv_pool_dense"
     _, x, trace, ctx, proof = proved[name]
@@ -131,6 +132,8 @@ def test_verifier_rejects_tampered_proof(proved, where):
     elif where == "pool_zerocheck":
         evals = bad.steps[_pool_node(bad)].zerocheck_evals
         evals[1] = _bump(evals[1])
+    elif where == "pool_gap":
+        bad.steps[_pool_node(bad)].variable_gap += 1
     else:
         chain = getattr(bad.steps[_conv_node(bad)], where)
         msgs = chain[0][1].round_messages

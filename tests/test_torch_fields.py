@@ -89,3 +89,50 @@ def test_canonical_inputs_only_hold_uint64_bit_patterns():
     t = gf.from_u64(np.array([P - 1, P, P + 5], dtype=np.uint64))
     assert t.dtype == torch.int64
     assert gf.to_u64(t).tolist() == [P - 1, 0, 5]
+
+
+def _lazy_operands(seed):
+    """Canonical operands plus u64 values in [p, 2^64): what a lazy product may hold."""
+    a, b = operands(seed, n=1024)
+    over = np.array([P, P + 1, (1 << 64) - 1, (1 << 64) - (1 << 31), P + (1 << 31)], dtype=np.uint64)
+    return np.concatenate([a, over, over]), np.concatenate([b, over, over[::-1]])
+
+
+def _as_tensor(u64):
+    return torch.from_numpy(np.ascontiguousarray(u64).view(np.int64))
+
+
+def _mod_products(a, b):
+    return np.array([int(x) * int(y) % P for x, y in zip(a, b)], dtype=np.uint64)
+
+
+@pytest.mark.parametrize("which", ["mul_lazy", "square_lazy"])
+def test_lazy_products_take_any_u64_and_stay_below_2_64(which):
+    a, b = _lazy_operands(6)
+    if which == "square_lazy":
+        b = a
+        got = gf.square_lazy(_as_tensor(a))
+    else:
+        got = gf.mul_lazy(_as_tensor(a), _as_tensor(b))
+    want = _mod_products(a, b)
+    np.testing.assert_array_equal(gf.to_u64(gf._canon_once(got)), want)
+    np.testing.assert_array_equal(gf.to_u64(gf.square(gf.from_u64(a[:1024]))), _mod_products(a[:1024], a[:1024]))
+
+
+@pytest.mark.parametrize("c", [0, 1, 7, (1 << 31) - 1])
+def test_mul_small_matches_host(c):
+    a, _ = operands(7)
+    got = gf.to_u64(gf.mul_small(gf.from_u64(a), c))
+    np.testing.assert_array_equal(got, ref.mul(a, np.full_like(a, c)))
+
+
+def test_split_and_recombine_halves():
+    a, _ = operands(8)
+    lo, hi = gf.split_halves(gf.from_u64(a))
+    np.testing.assert_array_equal(lo.numpy(), (a & np.uint64(0xFFFFFFFF)).astype(np.int64))
+    np.testing.assert_array_equal(hi.numpy(), (a >> np.uint64(32)).astype(np.int64))
+    np.testing.assert_array_equal(gf.to_u64(gf.from_halves(hi, lo)), a)
+    # the largest halves from_halves takes: sums of many halves, below 2^63
+    big = torch.tensor([(1 << 63) - 1, 1 << 62, 0], dtype=torch.int64)
+    want = [(int(h) * (1 << 32) + int(lo_)) % P for h, lo_ in zip(big.tolist(), big.flip(0).tolist())]
+    assert gf.to_u64(gf.from_halves(big, big.flip(0))).tolist() == want

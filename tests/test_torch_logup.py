@@ -213,8 +213,8 @@ class _PaddedTable:
 class _Ctx:
     class commitment_ctx:  # noqa: N801 - stands in for the CommitmentContext
         @staticmethod
-        def commit(evals):
-            return "commitment"
+        def commit_many(evals_list):
+            return ["commitment"] * len(evals_list)
 
     device = torch.device("cpu")
 

@@ -20,9 +20,8 @@ import torch_reference as R
 from deepprove_tpu_torch.fields import host
 from deepprove_tpu_torch.transcript import BasicTranscript
 from deepprove_tpu_torch.zkml import quantization as Q
-from deepprove_tpu_torch.zkml.convert import bench_requant_spec, mlp_chain_from_arrays
+from deepprove_tpu_torch.zkml.convert import mlp_chain_from_arrays
 from deepprove_tpu_torch.zkml.iop import IO, Context, Prover, verify
-from deepprove_tpu_torch.zkml.layers.dense import Dense
 from deepprove_tpu_torch.zkml.tensor import Tensor
 
 PROOF_PARTS = ("steps", "table_proofs", "shared_logup", "commit")
@@ -63,10 +62,9 @@ def test_inference_matches_numpy_and_jax(proved):
 
 def test_requant_specs_are_derived_as_bench_does():
     layers, _ = R.mlp_inputs()
-    got = []
-    for w, b in layers:
-        spec = bench_requant_spec(Dense(matrix=torch.from_numpy(w), bias=torch.from_numpy(b)), w.shape[1])
-        got.append({f: getattr(spec, f) for f in R.REQUANT_FIELDS})
+    model = mlp_chain_from_arrays(layers, device="cpu")
+    specs = [model.nodes[i].op.spec for i in range(1, len(model.nodes), 3)]
+    got = [{f: getattr(spec, f) for f in R.REQUANT_FIELDS} for spec in specs]
     assert got == R.load()["mlp"]["specs"]
 
 

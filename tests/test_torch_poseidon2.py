@@ -14,6 +14,7 @@ from deepprove_tpu.hashing import poseidon2 as jp2
 from deepprove_tpu.pcs import merkle as jmerkle
 from deepprove_tpu_torch.fields import gf, host
 from deepprove_tpu_torch.hashing import poseidon2, poseidon2_cuda
+from deepprove_tpu_torch.pcs import merkle
 from deepprove_tpu_torch.pcs.merkle import MerkleTree
 
 P = gf.P
@@ -91,3 +92,18 @@ def test_permutation_golden():
 def test_merkle_root_golden():
     tree = MerkleTree.from_leaves(gf.from_u64(np.arange(16, dtype=np.uint64)))
     assert list(tree.root) == VECS["merkle_root_0to15"]
+
+
+@pytest.mark.parametrize("n", [1, 2, 16])
+def test_trees_built_side_by_side_equal_trees_built_alone(n):
+    leaves = [gf.from_u64(_rand(60 + i, n)) for i in range(3)]
+    if n > 1:  # extension leaves come in pairs
+        leaves.append(gf.GF2(gf.from_u64(_rand(63, n)), gf.from_u64(_rand(64, n))))
+    leaves.append(gf.from_u64(_rand(65, 2 * n)))  # another length: a group of its own
+    together = MerkleTree.from_leaves_many(leaves)
+    for tree, lv in zip(together, leaves, strict=True):
+        alone = MerkleTree(leaves=lv, levels=[merkle.leaf_digests(lv)])
+        while alone.levels[-1].shape[1] > 1:
+            alone.levels.append(poseidon2_cuda.compress_level_plain(alone.levels[-1]))
+        assert tree.root == alone.root
+        assert [lvl.tolist() for lvl in tree.levels] == [lvl.tolist() for lvl in alone.levels]

@@ -132,7 +132,7 @@ def cnn_case(name: str):
     layers = [
         ("conv", dict(filter=w, bias=b, input_shape=(kx, n, n), stride=1)),
         ("requant", dict(multiplier=1.0 / (1 << 10))),  # spec from the conv's bit size
-        ("maxpool", {}),
+        ("maxpool", dict(input_shape=(kw, n, n))),
         ("flatten", {}),
         ("dense", dict(matrix=dmat, bias=dbias)),
     ]
@@ -171,19 +171,27 @@ def layer_records(model) -> list:
     """A quantized Model of either package as [(kind, fields)] numpy records
     (the layer form of `convert.model_from_layers`): conv filter, bias
     (padded to a power of two), input_shape, stride; dense matrix and bias
-    (padded); requant the RequantSpec fields; relu, maxpool, flatten none."""
+    (padded); requant the RequantSpec fields; maxpool its input shape (the
+    JAX layer has none: it is the conv output's, halved by each pool since);
+    relu, flatten none."""
     kinds = {"Convolution": "conv", "Dense": "dense", "Requant": "requant", "Relu": "relu",
              "Maxpool2D": "maxpool", "Flatten": "flatten"}
 
     def arr(t):
         return np.asarray(t.cpu() if hasattr(t, "cpu") else t, dtype=np.int64)
 
-    out = []
+    out, shape = [], None
     for nid in model.forward_order():
         op = model.nodes[nid].op
         kind = kinds[type(op).__name__]
         if kind == "conv":
             f = dict(filter=arr(op.filter), bias=arr(op.bias), input_shape=tuple(op.input_shape), stride=int(op.stride))
+            n = op.input_shape[1] // op.stride
+            shape = (f["bias"].shape[0], n, n)
+        elif kind == "maxpool":
+            f = dict(input_shape=tuple(getattr(op, "input_shape", shape)))
+            c, h, w = f["input_shape"]
+            shape = (c, h // 2, w // 2)
         elif kind == "dense":
             f = dict(matrix=arr(op.matrix), bias=arr(op.bias))
         elif kind == "requant":
