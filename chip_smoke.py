@@ -4,24 +4,39 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line:
-  1. build   - nvcc builds the Poseidon2 Merkle-compression kernel for
-               sm_90a from `deepprove_tpu_torch/csrc`, timed; the card's
-               name and power limit as nvidia-smi reports them; the
-               kernel's SASS length, registers, local (spill) memory,
-               block size and resident warps an SM.
-  2. kernels - the kernel against its plain torch version (bit-identical)
-               on random levels at sizes on both sides of the block and
-               warp boundaries and on levels of the edge values
-               {0, 1, 2^32 - 1, 2^32, 2^63, p - 2, p - 1}; the library's
-               field arithmetic on operands in [p, 2^64) against Python
-               ints; the golden Merkle root; kernel / plain times at 2^19
-               pairs beside the least time the card could take.
+  1. build   - one nvcc call builds the kernel library for sm_90a from
+               `deepprove_tpu_torch/csrc/kernels.cu` (every source in one
+               translation unit), timed; the card's name and power limit as
+               nvidia-smi reports them; the Merkle kernel's SASS length,
+               registers, local (spill) memory, block size and resident
+               warps an SM.
+  2. kernels - the Merkle kernel against its plain torch version
+               (bit-identical) on random levels at sizes on both sides of
+               the block and warp boundaries and on levels of the edge
+               values {0, 1, 2^32 - 1, 2^32, 2^63, p - 2, p - 1}; the
+               library's field arithmetic on operands in [p, 2^64) against
+               Python ints; the golden Merkle root; kernel / plain times at
+               2^19 pairs beside the least time the card could take. The
+               sponge kernel against the host challenger on random session
+               scripts (odd-length absorbs, squeezes of 1..33 challenges
+               that straddle refills, labels longer than the rate) and
+               against the plain torch permutation on single states. The
+               sumcheck round + finish kernels and the tail kernel against
+               their plain version, the per-round prover, at the main
+               path's shapes (logup levels of the LeNet's widest column
+               and of Dense-4M's 39 instances, Dense-4M's batch opening,
+               maxpool zerochecks of degree 5 with and without a folding
+               round above the tail).
   3. slice   - the Dense-only chain [4, 1024, 1024, 3] at the reference's
                parameters (200 queries, rate 1/2, basecode 2^7):
                Model.run -> Context.generate -> Prover.prove -> verify on
-               the card, the verifier rejecting a changed output, and the
-               kernel's launches in that run; then the medians of three warm
-               setup/prove/verify runs and the transcript's device copies.
+               the card, the verifier rejecting a changed output, and every
+               kernel's launches in setup, prove and verify; the sumcheck
+               kernels against the per-round prover at the path's stacked
+               sumcheck with the most rows (random rows); then the
+               medians of three warm setup/prove/verify runs and each warm
+               prove's transcript reads (the host reads the state only for
+               the Basefold query indices and the final materialize).
   4. mlp_4m  - Dense-4M as bench.py's build_mlp_4m builds it (six Dense ->
                Requant -> ReLU blocks, [4, 1024 x5, 3], logup-GKR for the
                lookups), driven and measured as the slice is; the output
@@ -39,8 +54,15 @@ Phases, each printing one JSON line:
                tests (conv -> requant -> maxpool -> flatten -> dense, a
                stride-2 conv, a tiny LeNet) proved on the card must equal
                the JAX package's proofs frozen in tests/torch_reference.json.
-Then the seconds each phase took, the kernel table line (its `launches`
-are those of the cnn phase, the main path) and, last, the device line.
+  7. kernel_times - the sponge and sumcheck kernels' device times (from the
+               profiler's records, after the paths: the profiler's
+               instrumentation slows the rest of a process), their plain
+               versions' times and their bounds: bytes for the round
+               kernel, the dependent-multiply latency (measured by a chain
+               of multiplies) for the sponge, finish and tail kernels.
+Then the seconds each phase took, the kernel table line (five kernels;
+their `launches` are those of the cnn phase, the main path) and, last,
+the device line.
 Any failure raises and exits non-zero; without a CUDA device it exits 2
 and prints no result.
 """
@@ -110,6 +132,26 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int, kernel: str) -> float:
+    """Mean device time in ms of the launches of `kernel` (a part of its
+    name) that `iters` calls of fn make, from the profiler's kernel records,
+    after one warm-up: an event-timed loop of launches that last a few
+    microseconds measures the host's launch rate instead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    durs = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA and kernel in e.name()]
+    if not durs:
+        raise AssertionError(f"the profiler recorded no {kernel} launch")
+    return sum(durs) / len(durs) / 1e6
+
+
 def wall_ms(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -143,11 +185,11 @@ def kernel_resources(so: str) -> dict:
 
 
 def phase_build():
-    from deepprove_tpu_torch import native
+    from deepprove_tpu_torch import kernels, native
     from deepprove_tpu_torch.hashing import poseidon2_cuda
 
     t0 = time.perf_counter()
-    so = poseidon2_cuda.build()
+    so = kernels.build()
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     native.get_lib()
@@ -163,7 +205,8 @@ def phase_build():
     }
     emit({
         "phase": "build", "ok": True, "nvcc_s": build_s, "gcc_s": host_build_s,
-        "library": os.path.relpath(so, ROOT), "card": card, "kernel": KERNEL, **stats,
+        "library": os.path.relpath(so, ROOT),
+        "card": card, "kernel": KERNEL, **stats,
         "torch": torch.__version__, "cuda": torch.version.cuda,
     })
     return card, stats
@@ -238,7 +281,11 @@ def phase_kernels(threads: int):
     rate = _int_mul_rate()
     ops_ms = pairs * MULS_PER_PAIR * INT32_MULS_PER_MUL / rate * 1e3
     bytes_ms = pairs * BYTES_PER_PAIR / HBM_BYTES_PER_S * 1e3
-    ok = mismatches == 0 and probe_mismatches == 0 and golden_ok
+    sponge = check_sponge()
+    sumcheck = check_sumcheck()
+    torch.cuda.empty_cache()  # hand the checks' gigabytes back before the paths run
+    ok = (mismatches == 0 and probe_mismatches == 0 and golden_ok and sponge["sponge_mismatches"] == 0
+          and sponge["permutation_mismatches"] == 0 and sumcheck["mismatches"] == 0)
     result = {
         "phase": "kernels", "ok": ok, "mismatches": mismatches, "per_level": per_level,
         "field_probe_operands": int(a.size), "field_probe_mismatches": probe_mismatches,
@@ -246,11 +293,295 @@ def phase_kernels(threads: int):
         "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
         "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
         "int32_mul_rate_per_s": rate, "max_abs_err": max_err,
+        "sponge": sponge, "sumcheck": sumcheck,
     }
     emit(result)
     if not ok:
-        raise AssertionError("kernel disagrees with its plain version")
+        raise AssertionError("a kernel disagrees with its plain version or the host challenger")
     return result
+
+
+SPONGE_KS = (1, 2, 3, 5, 7, 16, 33)  # squeezes that straddle refills at odd k
+LONG_LABEL = b"a label longer than the rate of the sponge"  # 6 chunks
+
+
+def check_sponge(seed: int = 5, scripts: int = 8, ops: int = 40) -> dict:
+    """The sponge kernel against the host challenger on random session
+    scripts (constants, base and extension arrays of odd lengths, squeezes
+    of SPONGE_KS challenges with and without labels, label triples), then
+    the permutation on single states against the plain torch one."""
+    from deepprove_tpu_torch.fields import gf, host
+    from deepprove_tpu_torch.hashing import poseidon2
+    from deepprove_tpu_torch.transcript import BasicTranscript, DuplexChallenger
+    from deepprove_tpu_torch.transcript import device as devt
+    from deepprove_tpu_torch.transcript.session import DeviceTranscript, label_chunks
+
+    rng = np.random.default_rng(seed)
+    P = host.P
+    challenges = mismatches = max_err = 0
+    for sc in range(scripts):
+        ht = BasicTranscript(b"m2vec")
+        ht.append_message(b"script %d" % sc)
+        dt = DeviceTranscript.from_host(ht, "cuda")
+        for _ in range(ops):
+            kind = int(rng.integers(0, 6))
+            got = want = None
+            if kind == 0:
+                vals = rng.integers(0, P, size=int(rng.integers(1, 8)), dtype=np.uint64)
+                dt.append_constants(vals.tolist())
+                ht.append_field_elements(vals)
+            elif kind == 1:
+                vals = rng.integers(0, P, size=int(rng.integers(1, 14)), dtype=np.uint64)
+                dt.append_base(gf.from_u64(vals, "cuda"))
+                ht.append_field_elements(vals)
+            elif kind == 2:
+                pairs = [tuple(int(v) for v in rng.integers(0, P, size=2, dtype=np.uint64))
+                         for _ in range(int(rng.integers(1, 10)))]
+                dt.append_exts(gf.ext_from_pairs(pairs, "cuda"))
+                ht.append_field_element_exts(pairs)
+            elif kind == 3:
+                k = int(rng.choice(SPONGE_KS))
+                got = gf.ext_to_pairs(dt.read_challenges(k))
+                want = [ht.read_challenge() for _ in range(k)]
+            elif kind == 4:
+                k = int(rng.choice(SPONGE_KS))
+                label = LONG_LABEL if rng.integers(0, 2) else b"query indices"
+                got = gf.ext_to_pairs(dt.get_and_append_challenges(label, k))
+                want = [ht.get_and_append_challenge(label) for _ in range(k)]
+            else:
+                labels = (b"logup_batching", b"logup_alpha", b"logup_lambda")
+                got = gf.ext_to_pairs(dt.step(labels=tuple(label_chunks(lbl) for lbl in labels), k=len(labels)))
+                want = [ht.get_and_append_challenge(lbl) for lbl in labels]
+            if want is not None:
+                challenges += len(want)
+                mismatches += sum(g != w for g, w in zip(got, want))
+                max_err = max([max_err] + [abs(a - b) for g, w in zip(got, want) for a, b in zip(g, w)])
+        ch = DuplexChallenger()
+        devt.import_state(ch, dt.state)
+        hc = ht.challenger
+        mismatches += int(not (np.array_equal(ch.state, hc.state) and ch.input_buffer == hc.input_buffer
+                               and ch.output_buffer == hc.output_buffer))
+    # one permutation: a fresh state (nothing queued, no output) duplexes
+    # without input on its first squeeze
+    states = [rng.integers(0, P, size=8, dtype=np.uint64) for _ in range(6)]
+    states += [np.full(8, v, dtype=np.uint64) for v in host.EDGE_VALUES]
+    perm_mismatches = 0
+    for lanes in states:
+        st = torch.zeros(devt.STATE_WORDS, dtype=torch.int64, device="cuda")
+        st[:8] = gf.from_u64(lanes, "cuda")
+        want = torch.stack(poseidon2.permute_planes([gf.from_u64([int(v)], "cuda") for v in lanes])).reshape(-1)
+        devt.sponge_cuda(st, k=1)
+        perm_mismatches += int((st[:8] != want).sum())
+        g, w = gf.to_u64(st[:8]).tolist(), gf.to_u64(want).tolist()
+        max_err = max([max_err] + [abs(a - b) for a, b in zip(g, w)])
+    return {"sponge_challenges": challenges, "sponge_mismatches": mismatches,
+            "permutation_states": len(states), "permutation_mismatches": perm_mismatches,
+            "max_abs_err": max_err}
+
+
+def sponge_permutations(absorbs: int, samples: int) -> int:
+    """Permutations of one sponge call that absorbs `absorbs` words and then
+    samples `samples`, from a state with no pending input (as every round's
+    call starts: the squeeze before it emptied the input buffer). An absorb
+    that fills the rate duplexes; a sample duplexes when input is pending or
+    the output buffer is empty, else pops."""
+    perms, ilen, olen = 0, 0, 0
+    for _ in range(absorbs):
+        ilen, olen = ilen + 1, 0
+        if ilen == 4:
+            perms, ilen, olen = perms + 1, 0, 4
+    for _ in range(samples):
+        if ilen or not olen:
+            perms, ilen, olen = perms + 1, 0, 4
+        olen -= 1
+    return perms
+
+
+def time_sponge(mul_ns: float) -> dict:
+    """One sumcheck round's sponge call (absorb a degree-3 message, the round
+    label, squeeze one challenge) on a fresh state: the kernel, the plain
+    version (the native host permutation), and the bound: its permutations
+    (`sponge_permutations`: 3) of 112 dependent multiplies at the card's
+    multiply latency."""
+    from deepprove_tpu_torch.fields import gf
+    from deepprove_tpu_torch.sumcheck.prover import ROUND_CHUNKS
+    from deepprove_tpu_torch.transcript import device as devt
+
+    msg = gf.ext_from_pairs([(i + 1, i + 2) for i in range(4)], "cuda")
+    st = torch.zeros(devt.STATE_WORDS, dtype=torch.int64, device="cuda")
+    kernel_ms = device_ms(lambda: devt.sponge_cuda(st.zero_(), arr=msg, labels=(ROUND_CHUNKS,), k=1), 200,
+                          "sponge_kernel")
+    st_cpu = torch.zeros(devt.STATE_WORDS, dtype=torch.int64)
+    msg_cpu = gf.GF2(msg.a0.cpu(), msg.a1.cpu())
+    t0 = time.perf_counter()
+    for _ in range(200):
+        devt.sponge_plain(st_cpu.zero_(), arr=msg_cpu, labels=(ROUND_CHUNKS,), k=1)
+    plain_ms = (time.perf_counter() - t0) * 1e3 / 200
+    perms = sponge_permutations(2 * msg.shape[0] + len(ROUND_CHUNKS), 2)
+    return {"kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": perms * 112 * mul_ns * 1e-6,
+            "permutations": perms}
+
+
+def mul_latency_ns(iters: int = 1 << 20) -> float:
+    """The card's latency of one dependent Goldilocks multiply, in ns."""
+    from deepprove_tpu_torch.transcript import device as devt
+
+    x = torch.tensor([3, 5], dtype=torch.int64, device="cuda")
+    return cuda_ms(lambda: devt.mul_chain(x, iters), 3) * 1e6 / iters
+
+
+def sumcheck_cases() -> dict:
+    """Main-path sumcheck shapes: name -> (num_vars, rows, products, degree).
+    A logup level of the LeNet's widest (2^13-entry) lookup column: its top
+    level, a lookup's input layer over 8 instances (eq, then d_hi, d_lo an
+    instance; two products of degree 2 padded with ones); a generic logup
+    level of 39 instances, Dense-4M's widest (eq, then n_lo, d_hi, n_hi,
+    d_lo an instance: 157 rows, 117 products), at 12 variables so that two
+    rounds run above the tail; the batch opening of Dense-4M: 63 claims at
+    2^20 entries, eq and poly rows a claim; the maxpool zerocheck (degree 5)
+    of the LeNet's first pool, and the same at 12 variables, whose second
+    round folds above the tail. Each path's stacked sumcheck with the most
+    rows is checked besides, at the shape the path gave it (`drive`)."""
+    inst = 8
+    logup = [p for i in range(inst) for p in ([0, 1 + 2 * i], [0, 2 + 2 * i], [0, 2 + 2 * i, 1 + 2 * i])]
+    wide = 39
+    generic = [p for r in range(1, 4 * wide, 4) for p in ([0, r, r + 1], [0, r + 2, r + 3], [0, r + 3, r + 1])]
+    maxpool = [[0, 1, 2, 3, 4]] + [[k, 4] for k in range(4)] + [[5, 6]]
+    return {
+        "logup_level_2^13": (12, 1 + 2 * inst, logup, 3),
+        "logup_level_39_instances": (12, 1 + 4 * wide, generic, 3),
+        "batch_open_2^20": (20, 126, [[2 * c, 2 * c + 1] for c in range(63)], 2),
+        "maxpool_zerocheck": (11, 7, maxpool, 5),
+        "maxpool_zerocheck_2^12": (12, 7, maxpool, 5),
+    }
+
+
+def random_vp(n, rows, products, seed, device):
+    """A VirtualPolynomial with random extension rows and random device
+    coefficients."""
+    from deepprove_tpu_torch.fields import gf, host
+    from deepprove_tpu_torch.sumcheck import VirtualPolynomial
+
+    rng = np.random.default_rng(seed)
+    vp = VirtualPolynomial.new(n)
+    a0 = rng.integers(0, host.P, size=(rows, 1 << n), dtype=np.uint64)
+    a1 = rng.integers(0, host.P, size=(rows, 1 << n), dtype=np.uint64)
+    vp.add_mle_rows(gf.GF2(gf.from_u64(a0, device), gf.from_u64(a1, device)))
+    for f in products:
+        vp.add_product(None, f)
+    c = rng.integers(0, host.P, size=(2, len(products)), dtype=np.uint64)
+    vp.coeffs_dev = gf.GF2(gf.from_u64(c[0], device), gf.from_u64(c[1], device))
+    return vp
+
+
+def check_sumcheck(cases=None) -> dict:
+    """The round + finish kernels and the tail kernel against their plain
+    version, the per-round prover (the same rounds in torch on the card,
+    the sponge on a CPU state), at the main path's shapes (`cases`, by
+    default `sumcheck_cases()`): messages, challenges, final evaluations
+    and the sponge state, bit for bit."""
+    from deepprove_tpu_torch.sumcheck import fused, prover
+    from deepprove_tpu_torch.transcript import BasicTranscript
+    from deepprove_tpu_torch.transcript.session import DeviceTranscript
+
+    per_case, mismatches, max_err = {}, 0, 0
+    for i, (name, (n, rows, products, degree)) in enumerate((cases or sumcheck_cases()).items()):
+        vp = random_vp(n, rows, products, 100 + i, "cuda")
+        ht = BasicTranscript(b"sumcheck %d" % i)
+        dt = DeviceTranscript.from_host(ht, "cuda")
+        dt_plain = DeviceTranscript.from_host(ht, "cpu")
+        out = fused.prove_device(vp, dt)
+        plain = prover.prove_device(vp, dt_plain)
+        msgs, chals, finals = plain.proof.round_messages, plain.proof.point, plain.final_evals
+        pairs = [(out.proof.round_messages, msgs), (out.proof.point, chals), (out.final_evals, finals)]
+        bad = 0
+        for got, want in pairs:
+            for g, w in ((got.a0, want.a0), (got.a1, want.a1)):
+                diff = g.cpu() != w.cpu()
+                bad += int(diff.sum())
+                if diff.any():
+                    max_err = max(max_err, int((g.cpu()[diff] - w.cpu()[diff]).abs().max()))
+        bad += int((dt.state.cpu() != dt_plain.state).sum())
+        per_case[name] = {"num_vars": n, "rows": rows, "products": len(products), "degree": degree,
+                          "mismatches": bad}
+        mismatches += bad
+        del vp, out, plain, msgs, chals, finals
+    return {"cases": per_case, "mismatches": mismatches, "max_abs_err": max_err}
+
+
+def time_sumcheck(mul_ns: float) -> dict:
+    """Each sumcheck kernel's device time at the batch opening's shape (the
+    round kernel's second round, which folds), its plain version's, and its
+    bound."""
+    from deepprove_tpu_torch.fields import gf
+    from deepprove_tpu_torch.sumcheck import VirtualPolynomial, fused, prover
+    from deepprove_tpu_torch.transcript import BasicTranscript
+    from deepprove_tpu_torch.transcript.session import DeviceTranscript
+
+    n, rows, products, degree = sumcheck_cases()["batch_open_2^20"]
+    vp = random_vp(n, rows, products, 7, "cuda")
+    dt = DeviceTranscript.from_host(BasicTranscript(b"timing"), "cuda")
+    s0, s1 = fused.stack_planes(vp)
+    m, length = s0.shape
+    fidx, coeffs = fused.factor_index(vp, degree, "cuda"), fused.coefficients(vp, "cuda")
+    half = torch.empty((2, m * (length // 2)), dtype=torch.int64, device="cuda")
+    chals = torch.randint(0, 1 << 62, (2, n), dtype=torch.int64, device="cuda")  # canonical
+    msgs = torch.empty((2, n, degree + 1), dtype=torch.int64, device="cuda")
+    blocks0 = length // 2 // fused._lib().threads + 1
+    partials = torch.empty(blocks0 * 2 * (degree + 1), dtype=torch.int64, device="cuda")
+    round_ms = device_ms(lambda: fused.round_cuda((s0, s1), (half[0], half[1]), m, length, chals, 1, n,
+                                                  fidx, coeffs, partials, degree), 10, "round_kernel")
+    blocks = fused.round_cuda((s0, s1), (half[0], half[1]), m, length, chals, 1, n, fidx, coeffs,
+                              partials, degree)
+    finish_ms = device_ms(lambda: fused.finish_cuda(partials, blocks, 1, n, msgs, chals, dt.state, degree), 50,
+                          "finish_kernel")
+    tail_len = 1 << (fused.TAIL_LOG + 1)
+    t0, t1 = s0[:, :tail_len].contiguous(), s1[:, :tail_len].contiguous()
+    finals = torch.empty((2, m), dtype=torch.int64, device="cuda")
+    tail_rnd0 = n - fused.TAIL_LOG
+    # the work does not depend on the values, so the tail runs again on what it left
+    tail_ms = device_ms(lambda: fused.tail_cuda((t0, t1), (half[0], half[1]), m, tail_len, tail_rnd0, n,
+                                                fidx, coeffs, msgs, chals, dt.state, finals, degree), 10,
+                        "tail_kernel")
+    # plain versions on the same shapes: torch on the card, the sponge on the CPU
+    stacked = gf.GF2(s0, s1)
+    idx = prover._factor_index(vp, degree, "cuda")
+    r = gf.GF2(chals[0, 0], chals[1, 0])
+    plain_round_ms = cuda_ms(lambda: prover._round_message(prover._fold_rows(stacked, r), idx, coeffs, degree), 2)
+    dt_cpu = DeviceTranscript.from_host(BasicTranscript(b"timing"), "cpu")
+    msg = gf.GF2(msgs[0, 0], msgs[1, 0])
+    plain_finish_ms, _ = wall_ms(lambda: [dt_cpu.step(arr=msg, labels=(prover.ROUND_CHUNKS,), k=1)
+                                          for _ in range(50)])
+    plain_finish_ms /= 50
+
+    def plain_tail():
+        """The tail's work by the per-round prover: the first fold, then
+        TAIL_LOG rounds (its absorb of [n, degree] one sponge call more)."""
+        tail_vp = VirtualPolynomial.new(fused.TAIL_LOG)
+        tail_vp.add_mle_rows(prover._fold_rows(gf.GF2(t0, t1), r))
+        for f in products:
+            tail_vp.add_product(None, f)
+        tail_vp.coeffs_dev = coeffs
+        return prover.prove_device(tail_vp, dt_cpu)
+
+    plain_tail_ms, _ = wall_ms(plain_tail)
+    # bounds: the round kernel moves its rows (16 bytes an element) once in
+    # and their halves once out; a finish is one sponge call of 2(D + 1) + 2
+    # absorbs and a squeeze of 2 words from a state with no pending input;
+    # the tail is TAIL_LOG such calls in sequence
+    round_bytes = m * length * 16 * 1.5
+    perms = sponge_permutations(2 * (degree + 1) + len(prover.ROUND_CHUNKS), 2)
+    finish_bound = perms * 112 * mul_ns * 1e-6
+    return {
+        "timed_shape": {"num_vars": n, "rows": m, "products": len(products), "degree": degree},
+        "round": {"kernel_ms": round_ms, "plain_ms": plain_round_ms,
+                  "bound_ms": round_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"},
+        "finish": {"kernel_ms": finish_ms, "plain_ms": plain_finish_ms, "bound_ms": finish_bound,
+                   "bound_by": "operations", "blocks": blocks, "permutations": perms},
+        "tail": {"kernel_ms": tail_ms, "plain_ms": plain_tail_ms,
+                 "bound_ms": fused.TAIL_LOG * finish_bound, "bound_by": "operations",
+                 "rounds": fused.TAIL_LOG, "row_length": tail_len},
+    }
 
 
 def build_chain(dims, seed):
@@ -298,35 +629,58 @@ def numpy_mlp(layers, x_np, specs):
     return v
 
 
+def reset_launches() -> None:
+    from deepprove_tpu_torch.hashing import poseidon2_cuda as pc
+    from deepprove_tpu_torch.sumcheck import fused
+    from deepprove_tpu_torch.transcript import device as devt
+
+    pc.LAUNCHES = 0
+    devt.LAUNCHES = 0
+    for k in fused.LAUNCHES:
+        fused.LAUNCHES[k] = 0
+
+
+def read_launches() -> dict:
+    """Kernel name -> launches since the last reset."""
+    from deepprove_tpu_torch.hashing import poseidon2_cuda as pc
+    from deepprove_tpu_torch.sumcheck import fused
+    from deepprove_tpu_torch.transcript import device as devt
+
+    return {"poseidon2_compress_level": pc.LAUNCHES, "sponge": devt.LAUNCHES, **fused.LAUNCHES}
+
+
 def drive(name, model, x_np, want, pcs_kw, warm_runs):
     """The main path once (Model.run -> Context.generate -> Prover.prove ->
-    verify) with the kernel's launch count set to 0 just before it, the
-    verifier rejecting a changed output, then `warm_runs` warm repeats."""
-    from deepprove_tpu_torch.fields import gf
-    from deepprove_tpu_torch.hashing import poseidon2_cuda as pc
+    verify) with every kernel's launch count set to 0 just before it and
+    read after each step, the verifier rejecting a changed output, then
+    `warm_runs` warm repeats, each with its transcript's host reads."""
     from deepprove_tpu_torch.transcript import BasicTranscript
-    from deepprove_tpu_torch.transcript.session import DeviceTranscript
     from deepprove_tpu_torch.zkml.iop import IO, Context, Prover, verify
     from deepprove_tpu_torch.zkml.tensor import Tensor
 
+    from deepprove_tpu_torch.sumcheck import fused
+
     x = Tensor(torch.from_numpy(x_np))
     torch.cuda.reset_peak_memory_stats()
-    pc.LAUNCHES = 0
+    reset_launches()
+    fused.LARGEST.update(num_vars=0, rows=0, factors=[], degree=0)
     run_ms, trace = wall_ms(lambda: model.run([x], DEVICE))
     got = trace.outputs[0].data.cpu().numpy()
     assert np.array_equal(got[: len(want)], want), "inference differs from numpy"
     cold_setup_ms, ctx = wall_ms(lambda: Context.generate(model, device=DEVICE, **pcs_kw))
-    launches_setup = pc.LAUNCHES
+    after_setup = read_launches()
     prover = Prover(ctx, BasicTranscript(b"m2vec"), device=DEVICE)
     cold_prove_ms, proof = wall_ms(lambda: prover.prove(trace))
-    launches_prove = pc.LAUNCHES - launches_setup
+    after_prove = read_launches()
     cold_verify_ms, _ = wall_ms(
         lambda: verify(ctx, proof, IO([x], trace.outputs), BasicTranscript(b"m2vec"), device=DEVICE)
     )
-    launches = pc.LAUNCHES
-    launches_verify = launches - launches_setup - launches_prove
-    if launches_prove == 0:
-        raise AssertionError("the prove launched the compression kernel no time")
+    after_verify = read_launches()
+    launches = {k: [after_setup[k], after_prove[k] - after_setup[k], after_verify[k] - after_prove[k]]
+                for k in after_verify}
+    for k, (_, in_prove, _) in launches.items():
+        if in_prove == 0:
+            raise AssertionError(f"the prove launched kernel {k} no time")
 
     bad = trace.outputs[0].data.clone()
     bad[0] += 1
@@ -337,36 +691,38 @@ def drive(name, model, x_np, want, pcs_kw, warm_runs):
     else:
         raise AssertionError("verify accepted a changed output")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    big = dict(fused.LARGEST)
+    largest = {"num_vars": big["num_vars"], "rows": big["rows"], "products": len(big["factors"]),
+               "degree": big["degree"]}
+    if big["rows"]:  # the kernels at the path's own largest shape, random rows
+        check = check_sumcheck({name: (big["num_vars"], big["rows"], big["factors"], big["degree"])})
+        largest.update(mismatches=check["mismatches"], max_abs_err=check["max_abs_err"])
+        if check["mismatches"]:
+            raise AssertionError(f"the sumcheck kernels disagree at {name}'s largest shape: {largest}")
 
     warm = {"setup_ms": [], "prove_ms": [], "verify_ms": []}
+    warm_pulls = []
     for _ in range(warm_runs):
         ms, ctx = wall_ms(lambda: Context.generate(model, device=DEVICE, **pcs_kw))
         warm["setup_ms"].append(ms)
-        ms, proof = wall_ms(lambda: Prover(ctx, BasicTranscript(b"m2vec"), device=DEVICE).prove(trace))
+        p = Prover(ctx, BasicTranscript(b"m2vec"), device=DEVICE)
+        ms, proof = wall_ms(lambda: p.prove(trace))
         warm["prove_ms"].append(ms)
+        warm_pulls.append(p.dt.pulls)
         ms, _ = wall_ms(
             lambda: verify(ctx, proof, IO([x], trace.outputs), BasicTranscript(b"m2vec"), device=DEVICE)
         )
         warm["verify_ms"].append(ms)
 
-    # what holding the sponge on the host costs: per-copy times on an idle
-    # card, times the copies one prove made
-    dt = DeviceTranscript.from_host(BasicTranscript(b"probe"), DEVICE)
-    msg = gf.ext_from_pairs([(1, 2), (3, 4), (5, 6)], DEVICE)
-    pull_ms, _ = wall_ms(lambda: [dt.append_exts(msg) for _ in range(200)])
-    push_ms, _ = wall_ms(lambda: [dt.read_challenge() for _ in range(200)])
-    pull_ms, push_ms = pull_ms / 200, push_ms / 200
     result = {
         "phase": name, "ok": True, **pcs_kw, "inference_ms": run_ms,
         **{k: float(np.median(v)) for k, v in warm.items()},
         "warm_runs": warm, "cold_setup_ms": cold_setup_ms,
         "cold_prove_ms": cold_prove_ms, "cold_verify_ms": cold_verify_ms,
-        "proof_field_elements": count_field_elements(proof), "launches": launches,
-        "launches_setup": launches_setup, "launches_prove": launches_prove,
-        "launches_verify": launches_verify, "tampered_output_rejected": True,
-        "transcript_pulls": prover.dt.pulls, "transcript_pushes": prover.dt.pushes,
-        "pull_ms": pull_ms, "push_ms": push_ms,
-        "transcript_copy_ms": prover.dt.pulls * pull_ms + prover.dt.pushes * push_ms,
+        "proof_field_elements": count_field_elements(proof),
+        "launches_by_kernel": launches, "tampered_output_rejected": True,
+        "transcript_pulls": prover.dt.pulls, "transcript_pulls_warm": warm_pulls,
+        "largest_sumcheck": largest,
         "peak_mem_gib": peak_gib,
     }
     return result
@@ -487,6 +843,18 @@ def phase_reference():
         raise AssertionError(f"the card's proofs differ from the JAX package's: {equal}")
 
 
+def phase_kernel_times() -> dict:
+    """The sponge and sumcheck kernels' device times, from the profiler's
+    records, beside their plain versions and bounds. It runs after the path
+    phases: a process keeps paying for the profiler's instrumentation after
+    it has run, and the paths' times must not carry that."""
+    mul_ns = mul_latency_ns()
+    result = {"phase": "kernel_times", "ok": True, "mul_latency_ns": mul_ns,
+              "sponge": time_sponge(mul_ns), **time_sumcheck(mul_ns)}
+    emit(result)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -503,25 +871,44 @@ def main() -> int:
     t1 = time.perf_counter()
     phase_reference()
     seconds["reference"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    times = phase_kernel_times()
+    seconds["kernel_times"] = time.perf_counter() - t1
     emit({"phase": "elapsed", "seconds": seconds, "total_s": time.perf_counter() - t0})
     cnn = paths[-1]  # the main path: the kernels line's `launches` are its
+    by_path = {p["phase"]: p["launches_by_kernel"] for p in paths}
+    # the sumcheck kernels' largest disagreement: the kernels phase's cases
+    # and each path's own largest shape
+    sc_err = max([k["sumcheck"]["max_abs_err"]]
+                 + [p["largest_sumcheck"].get("max_abs_err", 0) for p in paths])
+    sc, sp = {**times, "max_abs_err": sc_err}, times["sponge"]
+    rows = [
+        ("poseidon2_compress_level", "poseidon2_compress.cu", "deepprove_tpu/hashing/poseidon2_pallas.py:142",
+         {"kernel_ms": k["kernel_ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+          "bound_by": "operations" if k["bound_ops_ms"] >= k["bound_bytes_ms"] else "bytes"},
+         k["max_abs_err"], {"sass_instructions": stats["sass_instructions"],
+                            "resident_warps_per_sm": stats["resident_warps_per_sm"]}),
+        ("sponge", "transcript.cu", "deepprove_tpu/transcript/device.py:60",
+         {**sp, "bound_by": "operations"}, k["sponge"]["max_abs_err"], {}),
+        ("sumcheck_round", "sumcheck.cu", "deepprove_tpu/sumcheck/fused.py:164", sc["round"], sc["max_abs_err"], {}),
+        ("sumcheck_finish", "sumcheck.cu", "deepprove_tpu/sumcheck/fused.py:164", sc["finish"], sc["max_abs_err"], {}),
+        ("sumcheck_tail", "sumcheck.cu", "deepprove_tpu/sumcheck/fused.py:64", sc["tail"], sc["max_abs_err"], {}),
+    ]
     emit({"kernels": [{
-        "name": "poseidon2_compress_level",
+        "name": name,
         "route": "cuda",
-        "source": "deepprove_tpu_torch/csrc/poseidon2_compress.cu",
-        "replaces": "deepprove_tpu/hashing/poseidon2_pallas.py:142",
-        "launches": cnn["launches"],
-        "launches_by_path": {p["phase"]: [p["launches_setup"], p["launches_prove"], p["launches_verify"]]
-                             for p in paths},
-        "max_abs_err": k["max_abs_err"],
-        "ms": k["kernel_ms"],
-        "plain_ms": k["plain_ms"],
-        "bound_ms": k["bound_ms"],
-        "bound_by": "operations" if k["bound_ops_ms"] >= k["bound_bytes_ms"] else "bytes",
+        "source": f"deepprove_tpu_torch/csrc/{src}",
+        "replaces": replaces,
+        "launches": sum(cnn["launches_by_kernel"][name]),
+        "launches_by_path": {path: by[name] for path, by in by_path.items()},
+        "max_abs_err": err,
+        "ms": t["kernel_ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
         "library_ms": None,
-        "sass_instructions": stats["sass_instructions"],
-        "resident_warps_per_sm": stats["resident_warps_per_sm"],
-    }]})
+        **extra,
+    } for name, src, replaces, t, err, extra in rows]})
     print(card, flush=True)
     emit({
         "ok": True,

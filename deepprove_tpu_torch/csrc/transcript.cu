@@ -1,0 +1,113 @@
+// The Fiat-Shamir sponge kernel: one launch applies one call of the
+// transcript session (transcript/session.py) to the state in device memory.
+//
+// Replaces the JAX package's jitted sponge dispatches: transcript/device.py
+// (observe, sample, observe_ext, sample_ext) as driven by
+// transcript/session.py `_absorb_constants`, `_absorb_base_arr`,
+// `_absorb_ext_arr`, `_sample_ext_vec`, `_challenge_vec`, `_challenge_multi`
+// (:43-146). In eager torch one width-8 permutation would be thousands of
+// launches; here a whole call is one.
+//
+// One call, in this order:
+//   1. absorb `n_pre` constants given by value (labels, num_vars, degrees);
+//   2. absorb a device array of n elements: base (a1 == nullptr) or
+//      extension, a0[i] then a1[i] for each element;
+//   3. squeeze k extension challenges (a0 sampled first), absorbing label
+//      chunks before each one: none (n_labels == 0), label 0 before every
+//      challenge (n_labels == 1), or label q before challenge q; the
+//      challenges go to out (2, k): the a0 row, then the a1 row.
+//
+// What bounds it: latency. One thread runs the sponge, because every
+// permutation depends on the one before: a permutation is 8 external rounds
+// of 3 dependent multiplies (the S-box) and 22 internal rounds of 4, 112
+// dependent Goldilocks multiplies, each a chain of 32-bit multiply-adds and
+// a reduction. The design keeps the whole call in one launch, reads the
+// array in order with one load per element, and spends nothing on threads
+// that would wait.
+
+#include <cuda_runtime.h>
+
+#include "transcript.cuh"
+
+namespace {
+
+constexpr int MAX_PRE = 16;
+constexpr int MAX_LABELS = 4;
+constexpr int MAX_LABEL_CHUNKS = 16;
+
+struct Script {
+    u64 pre[MAX_PRE];
+    u64 label_chunks[MAX_LABEL_CHUNKS];
+    int label_off[MAX_LABELS + 1];
+    int n_pre;
+    int n_labels;
+};
+
+__global__ void __launch_bounds__(1) sponge_kernel(u64* state, Script sc, const u64* a0,
+                                                    const u64* a1, long long n, long long k,
+                                                    u64* out) {
+    sponge::State st;
+    sponge::load(st, state);
+    for (int i = 0; i < sc.n_pre; i++) sponge::observe(st, sc.pre[i]);
+    for (long long i = 0; i < n; i++) {
+        sponge::observe(st, a0[i]);
+        if (a1) sponge::observe(st, a1[i]);
+    }
+    for (long long q = 0; q < k; q++) {
+        if (sc.n_labels) {
+            int l = sc.n_labels == 1 ? 0 : (int)q;
+            for (int c = sc.label_off[l]; c < sc.label_off[l + 1]; c++)
+                sponge::observe(st, sc.label_chunks[c]);
+        }
+        out[q] = sponge::sample(st);
+        out[k + q] = sponge::sample(st);
+    }
+    sponge::store(st, state);
+}
+
+// x[0] <- x[0] * x[1]^iters by a chain of dependent multiplies in one
+// thread: its time over `iters` is the latency of one Goldilocks multiply,
+// the unit of the sponge's bound.
+__global__ void __launch_bounds__(1) mul_chain_kernel(u64* x, long long iters) {
+    u64 v = x[0];
+    const u64 w = x[1];
+    for (long long i = 0; i < iters; i++) v = gl::mul(v, w);
+    x[0] = gl::canonical(v);
+}
+
+}  // namespace
+
+extern "C" int dp_mul_chain(void* x, long long iters, void* stream) {
+    mul_chain_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((u64*)x, iters);
+    return (int)cudaGetLastError();
+}
+
+// Limits of one call, for the wrapper's checks.
+extern "C" void dp_sponge_limits(int* max_pre, int* max_labels, int* max_label_chunks) {
+    *max_pre = MAX_PRE;
+    *max_labels = MAX_LABELS;
+    *max_label_chunks = MAX_LABEL_CHUNKS;
+}
+
+// pre: n_pre constants; label_chunks / label_off: n_labels labels (label l
+// = chunks [label_off[l], label_off[l + 1])). Launches on `stream`; returns
+// cudaGetLastError() of the launch (0 = success).
+extern "C" int dp_sponge(void* state, const unsigned long long* pre, int n_pre,
+                         const unsigned long long* label_chunks, const int* label_off,
+                         int n_labels, const void* a0, const void* a1, long long n,
+                         long long k, void* out, void* stream) {
+    Script sc = {};
+    if (n_pre > MAX_PRE || n_labels > MAX_LABELS || n_pre < 0 || n_labels < 0)
+        return (int)cudaErrorInvalidValue;
+    for (int i = 0; i < n_pre; i++) sc.pre[i] = pre[i];
+    if (n_labels) {
+        if (label_off[n_labels] > MAX_LABEL_CHUNKS) return (int)cudaErrorInvalidValue;
+        for (int l = 0; l <= n_labels; l++) sc.label_off[l] = label_off[l];
+        for (int c = 0; c < label_off[n_labels]; c++) sc.label_chunks[c] = label_chunks[c];
+    }
+    sc.n_pre = n_pre;
+    sc.n_labels = n_labels;
+    sponge_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((u64*)state, sc, (const u64*)a0,
+                                                     (const u64*)a1, n, k, (u64*)out);
+    return (int)cudaGetLastError();
+}

@@ -308,6 +308,17 @@ def ext_inv(a: GF2) -> GF2:
     return GF2(mul(a.a0, ninv), mul(neg(a.a1), ninv))
 
 
+def ext_powers(a: GF2, k: int) -> GF2:
+    """1, a, a^2, ..., a^(k-1) for a GF2 () scalar, as GF2 (k,) on its
+    device: by doubling, 2 log2(k) multiplies."""
+    out = ext_ones((1,), a.device)
+    step = a.reshape(1)
+    while out.shape[0] < k:
+        out = ext_concatenate([out, ext_mul(out, step)])
+        step = ext_mul(step, step)
+    return out[:k]
+
+
 def ext_concatenate(parts, dim: int = 0) -> GF2:
     return GF2(
         torch.cat([p.a0 for p in parts], dim), torch.cat([p.a1 for p in parts], dim)

@@ -5,7 +5,8 @@ proof tree is lowered to host ints in ONE device-to-host copy at the end
 (`materialize`), into the same nested plain-int structure as the JAX
 package's `glue.materialize`: GF2 () -> pair, (n,) -> [pairs],
 (n, m) -> [[pairs]]; base () -> int, (n,) -> [ints]; `NpGF` -> numpy
-uint64 array.
+uint64 array; a `Deferred` node -> what its `build` function makes of
+its lowered leaves (the Basefold query openings).
 """
 
 from __future__ import annotations
@@ -31,9 +32,21 @@ def at(arr: GF2, i: int) -> GF2:
     return arr[i]
 
 
+_INDEX: dict = {}
+
+
+def index_tensor(idxs, device) -> torch.Tensor:
+    """A list of indices as an int64 tensor on `device`, made once per list
+    (a copy from pageable host memory waits for the device)."""
+    key = (tuple(idxs), str(device))
+    if key not in _INDEX:
+        _INDEX[key] = torch.tensor(key[0], dtype=torch.int64).to(device)
+    return _INDEX[key]
+
+
 def take(arr: GF2, idxs) -> GF2:
     """arr[idxs] for a GF2 (m,) array and a list of indices."""
-    ii = torch.tensor(list(idxs), dtype=torch.int64, device=arr.device)
+    ii = index_tensor(idxs, arr.device)
     return GF2(arr.a0[ii], arr.a1[ii])
 
 
@@ -49,11 +62,28 @@ class NpGF:
     arr: torch.Tensor
 
 
+@dataclasses.dataclass
+class Deferred:
+    """Marker: lower `leaves` (any tree of device values) with everything
+    else, then replace this node with `build(host leaves)`."""
+
+    leaves: object
+    build: object
+
+
 class _Pending:
     __slots__ = ("idx",)
 
     def __init__(self, idx: int):
         self.idx = idx
+
+
+class _PendingDeferred:
+    __slots__ = ("leaves", "build")
+
+    def __init__(self, leaves, build):
+        self.leaves = leaves
+        self.build = build
 
 
 class _PendingClaim:
@@ -124,6 +154,8 @@ def materialize(root):
             leaves.append(("base", obj))
         elif isinstance(obj, DevClaim):
             return _PendingClaim(recurse(obj.point), recurse(obj.eval))
+        elif isinstance(obj, Deferred):
+            return _PendingDeferred(recurse(obj.leaves), obj.build)
         else:
             return _DESCEND
         return _Pending(len(leaves) - 1)
@@ -151,6 +183,8 @@ def materialize(root):
             return values[obj.idx]
         if isinstance(obj, _PendingClaim):
             return Claim(point=recurse(obj.point), eval=recurse(obj.eval))
+        if isinstance(obj, _PendingDeferred):
+            return obj.build(recurse(obj.leaves))
         return _DESCEND
 
     return _map(root, resolve, set())

@@ -10,7 +10,7 @@ raises if the kernel cannot run; on a CPU tensor it computes
 PyTorch call computes Poseidon2.
 
 The kernel library is built with nvcc for sm_90a at first use into the
-package's build directory and bound with ctypes. It also carries
+package's build directory and bound with ctypes (`kernels.py`). It also carries
 `goldilocks_probe`, which runs the kernel's field arithmetic on given
 operands so that its lazy (non-canonical) ranges can be checked on the
 card against Python ints.
@@ -19,16 +19,11 @@ card against Python ints.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
 
 import torch
 
-from .. import native
+from .. import kernels
 from . import poseidon2
-
-CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
-SOURCE = os.path.join(CSRC, "poseidon2_compress.cu")
 
 # Launches of the CUDA kernel since the last reset (plain int; callers reset).
 LAUNCHES = 0
@@ -36,45 +31,21 @@ LAUNCHES = 0
 _LIB = None
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found; the CUDA kernel cannot be built")
-    return path
-
-
-def nvcc_command(include_dir: str, out_path: str) -> list[str]:
-    return [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-I", include_dir, "-I", CSRC,
-        "-o", out_path, SOURCE,
-    ]
-
-
 def build() -> str:
     """Build (or find) the kernel library; returns the .so path."""
-    return native.build_shared_lib(
-        "poseidon2_cuda", [SOURCE, os.path.join(CSRC, "goldilocks.cuh")], nvcc_command
-    )
+    return kernels.build()
 
 
 def _lib():
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(build())
+        lib = kernels.library()
         lib.dp_poseidon2_compress_level.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
         ]
         lib.dp_poseidon2_compress_level.restype = ctypes.c_int
-        lib.dp_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.dp_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
-
-
-def _raise_on(lib, err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} failed: " + lib.dp_cuda_error_string(err).decode())
 
 
 def launch_config() -> tuple[int, int]:
@@ -85,7 +56,7 @@ def launch_config() -> tuple[int, int]:
     fn.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     threads, blocks = ctypes.c_int(), ctypes.c_int()
-    _raise_on(lib, fn(ctypes.byref(threads), ctypes.byref(blocks)), "occupancy query")
+    kernels.check(fn(ctypes.byref(threads), ctypes.byref(blocks)), "occupancy query")
     return threads.value, blocks.value
 
 
@@ -123,7 +94,7 @@ def compress_level_cuda(digests: torch.Tensor) -> torch.Tensor:
         err = lib.dp_poseidon2_compress_level(
             digests.data_ptr(), out.data_ptr(), m, stream
         )
-    _raise_on(lib, err, "poseidon2 compress kernel launch")
+    kernels.check(err, "poseidon2 compress kernel launch")
     LAUNCHES += 1
     return out
 
@@ -154,5 +125,5 @@ def goldilocks_probe(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr(), a.shape[0], stream)
-    _raise_on(lib, err, "goldilocks probe launch")
+    kernels.check(err, "goldilocks probe launch")
     return out

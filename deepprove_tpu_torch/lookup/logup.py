@@ -15,10 +15,11 @@ package's `lookup/logup.py`.
 
 All instances of one proof share one column size, so their trees are built
 together as (instances, width) arrays and each level's sumcheck takes every
-instance's rows as one stacked array. The challenges come from the host
-sponge, so the claim algebra's coefficients are computed on the host and the
-claims as one weighted sum of device evaluations: the same field values as
-the JAX package's, claim for claim. The verifier is host code on ext pairs.
+instance's rows as one stacked array. The challenges stay on the device, and
+the claim algebra is a handful of eager ops on (instances,)-sized device
+arrays, as the JAX package's `_initial_claim_kernel`, `_next_claim_kernel`,
+`_final_lookup_claim_kernel` and `_level_coeffs_kernel`: the same field
+values, claim for claim. The verifier is host code on ext pairs.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from ..fields.gf import GF2
 from ..poly import mle as mle_mod
 from ..sumcheck import VirtualPolynomial, prove_device
 from ..sumcheck import verify as sumcheck_verify
+from ..transcript.session import label_chunks
 
 ExtPair = tuple[int, int]
 
@@ -51,7 +53,8 @@ class Claim:
 class LogUpInput:
     """A lookup (columns_per_instance columns an instance) or a table (its
     columns and multiplicities, whose claim comes first in the proof).
-    Columns are base tensors of one length 2^n; challenges are host pairs."""
+    Columns are base tensors of one length 2^n; challenges are device GF2 ()
+    scalars or host pairs."""
 
     column_evals: list
     constant_challenge: ExtPair
@@ -196,6 +199,11 @@ class _Circuits:
         return kind, rows.reshape(-1, rows.shape[-1])
 
 
+def _on(challenge, device) -> GF2:
+    """A challenge (a device GF2 () or a host pair) as a GF2 () on `device`."""
+    return challenge if isinstance(challenge, GF2) else gf.ext_scalar(challenge, device)
+
+
 def _make_circuits(instances, multiplicities, dt) -> _Circuits:
     """instances: [(columns, const_pair, sep_pair)] of one column length;
     multiplicities: one per instance for tables, else None."""
@@ -208,7 +216,9 @@ def _make_circuits(instances, multiplicities, dt) -> _Circuits:
         torch.stack([cols[k] if k < len(cols) else zero for cols, _, _ in instances])
         for k in range(max(len(cols) for cols, _, _ in instances))
     ]
-    challenges = dt.push([c for _, c, _ in instances] + [s for _, _, s in instances])
+    challenges = gf.ext_stack(
+        [_on(c, dt.device) for _, c, _ in instances] + [_on(s, dt.device) for _, _, s in instances]
+    )
     n = len(instances)
     den = merge_columns(columns, challenges[:n], challenges[n:])
     if multiplicities is None:
@@ -219,55 +229,47 @@ def _make_circuits(instances, multiplicities, dt) -> _Circuits:
 
 
 # ---------------------------------------------------------------------------
-# claim algebra (host coefficients of device evaluations)
+# claim algebra (eager ops on (instances,)-sized device arrays)
 # ---------------------------------------------------------------------------
 
 
-def _initial_weights(bc, alpha, lam, num_instances) -> list[ExtPair]:
+def _lerp(bc: GF2, x: GF2, y: GF2) -> GF2:
+    """x + bc (y - x)."""
+    return gf.ext_add(x, gf.ext_mul(bc, gf.ext_sub(y, x)))
+
+
+def _batched(terms: GF2, apow: GF2) -> GF2:
+    """sum_i alpha^i terms[i], apow = (alpha^i)_i."""
+    return gf.ext_sum_axis(gf.ext_mul(apow, terms), 0)
+
+
+def _initial_claim(out_ext: GF2, bc, apow, lam) -> GF2:
     """sum_i alpha^i (e0 + bc(e1 - e0) + lam(e2 + bc(e3 - e2))) over the
-    circuit outputs [n0, n1, d0, d1] of each instance, as weights."""
-    one_bc = host.ext_sub(_ONE, bc)
-    out = []
-    for a in host.ext_powers(alpha, num_instances):
-        al = host.ext_mul(a, lam)
-        out += [host.ext_mul(a, one_bc), host.ext_mul(a, bc),
-                host.ext_mul(al, one_bc), host.ext_mul(al, bc)]
-    return out
+    circuit outputs [n0, n1, d0, d1] of each instance."""
+    e = [out_ext[:, k] for k in range(4)]
+    return _batched(gf.ext_add(_lerp(bc, e[0], e[1]), gf.ext_mul(lam, _lerp(bc, e[2], e[3]))), apow)
 
 
-def _next_weights(bc, alpha, lam, num_instances) -> list[ExtPair]:
+def _next_claim(evals: GF2, bc, apow, lam) -> GF2:
     """Per instance evals [n_lo, d_hi, n_hi, d_lo]:
     sum_i alpha^i (e0 + bc(e2 - e0) + lam(e3 + bc(e1 - e3)))."""
-    one_bc = host.ext_sub(_ONE, bc)
-    out = []
-    for a in host.ext_powers(alpha, num_instances):
-        al = host.ext_mul(a, lam)
-        out += [host.ext_mul(a, one_bc), host.ext_mul(al, bc),
-                host.ext_mul(a, bc), host.ext_mul(al, one_bc)]
-    return out
+    e = [evals[:, k] for k in range(4)]
+    return _batched(gf.ext_add(_lerp(bc, e[0], e[2]), gf.ext_mul(lam, _lerp(bc, e[3], e[1]))), apow)
 
 
-def _final_lookup_weights(bc, alpha, num_instances) -> list[ExtPair]:
+def _final_lookup_claim(evals: GF2, bc, apow) -> GF2:
     """Per instance evals [d_hi, d_lo]: sum_i alpha^i (e1 + bc(e0 - e1))."""
-    one_bc = host.ext_sub(_ONE, bc)
-    out = []
-    for a in host.ext_powers(alpha, num_instances):
-        out += [host.ext_mul(a, bc), host.ext_mul(a, one_bc)]
-    return out
+    return _batched(_lerp(bc, evals[:, 1], evals[:, 0]), apow)
 
 
-def _level_coeffs(alpha, lam, kind: str, num_instances) -> list[ExtPair]:
+def _level_coeffs(apow, lam, kind: str) -> GF2:
     """Product coefficients of one level: [a, a, a lam] for a generic
     instance, [-a, -a, a lam] for a lookup's input layer (a = alpha^i)."""
-    out = []
-    for a in host.ext_powers(alpha, num_instances):
-        al = host.ext_mul(a, lam)
-        out += [a, a, al] if kind == "generic" else [host.ext_neg(a), host.ext_neg(a), al]
-    return out
-
-
-def _weighted_sum(evals: GF2, weights: list[ExtPair], dt) -> GF2:
-    return gf.ext_sum_axis(gf.ext_mul(evals, dt.push(weights)), 0)
+    a = apow
+    al = gf.ext_mul(a, lam)
+    if kind != "generic":
+        a = GF2(gf.neg(a.a0), gf.neg(a.a1))
+    return gf.ext_stack([a, a, al], dim=1).reshape(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -275,8 +277,12 @@ def _weighted_sum(evals: GF2, weights: list[ExtPair], dt) -> GF2:
 # ---------------------------------------------------------------------------
 
 
-def _challenges(dt, prefix: bytes):
-    return [dt.challenge_pairs(1, prefix + s)[0] for s in (b"_batching", b"_alpha", b"_lambda")]
+def _challenges(dt, prefix: bytes, pre=(), arr=None):
+    """The (batching, alpha, lambda) triple in one sponge call, after
+    absorbing `pre` and `arr`."""
+    labels = tuple(label_chunks(prefix + s) for s in (b"_batching", b"_alpha", b"_lambda"))
+    c = dt.step(pre=pre, arr=arr, labels=labels, k=3)
+    return c[0], c[1], c[2]
 
 
 def _level_vp(circuits: _Circuits, level: int, point: GF2):
@@ -301,29 +307,28 @@ def _prove_circuits(circuits: _Circuits, base_mles, is_table: bool, dt) -> LogUp
     total_layers = circuits.num_vars
     out_ext = circuits.outputs()  # (I, 4)
 
-    dt.append_constants([num_instances])
-    dt.append_exts(out_ext.reshape(-1))
-    bc, alpha, lam = _challenges(dt, b"initial")
-    claim = _weighted_sum(out_ext.reshape(-1), _initial_weights(bc, alpha, lam, num_instances), dt)
-    point = dt.push([bc])
+    bc, alpha, lam = _challenges(dt, b"initial", pre=[num_instances], arr=out_ext.reshape(-1))
+    apow = gf.ext_powers(alpha, num_instances)  # each level's alpha powers serve its claim and coefficients
+    claim = _initial_claim(out_ext, bc, apow, lam)
+    point = bc.reshape(1)
     sumcheck_proofs, round_evaluations = [], []
 
     for level in range(1, total_layers + 1):
         dt.append_exts(claim)
         kind, vp = _level_vp(circuits, level, point)
-        vp.coeffs_dev = dt.push(_level_coeffs(alpha, lam, kind, num_instances))
+        vp.coeffs_dev = _level_coeffs(apow, lam, kind)
         out = prove_device(vp, dt)
         evals = out.final_evals[1:]  # without eq
 
-        bc, alpha_next, lam_next = _challenges(dt, b"logup")
-        point = glue.concat_points([out.proof.point, dt.push([bc])])
+        bc, alpha, lam = _challenges(dt, b"logup")
+        apow = gf.ext_powers(alpha, num_instances)
+        point = glue.concat_points([out.proof.point, bc])
         sumcheck_proofs.append(out.proof)
+        per = evals.reshape(num_instances, -1)
         if level != total_layers or is_table:
-            weights = _next_weights(bc, alpha_next, lam_next, num_instances)
+            claim = _next_claim(per, bc, apow, lam)
         else:
-            weights = _final_lookup_weights(bc, alpha_next, num_instances)
-        claim = _weighted_sum(evals, weights, dt)
-        alpha, lam = alpha_next, lam_next
+            claim = _final_lookup_claim(per, bc, apow)
         round_evaluations.append(evals)
 
     evals = _batch_evaluate(torch.stack(list(base_mles)), point)
@@ -378,11 +383,12 @@ def batch_prove_grouped_tables(instances, dt) -> LogUpProof:
 
 
 def batch_prove(inp: LogUpInput, transcript) -> LogUpProof:
-    """Host-transcript API: proves on the columns' device, returns host values."""
+    """Host-transcript API: proves on the columns' device, returns host
+    values and advances `transcript`."""
     from ..transcript.session import DeviceTranscript
 
     dt = DeviceTranscript.from_host(transcript, inp.column_evals[0].device)
-    return glue.materialize(batch_prove_device(inp, dt))
+    return dt.materialize(batch_prove_device(inp, dt), transcript)
 
 
 # ---------------------------------------------------------------------------
@@ -396,6 +402,42 @@ def fractional_outputs(proof: LogUpProof) -> tuple[list[ExtPair], list[ExtPair]]
         nums.append(host.ext_add(host.ext_mul(e[0], e[3]), host.ext_mul(e[1], e[2])))
         dens.append(host.ext_mul(e[2], e[3]))
     return nums, dens
+
+
+# the verifier's claim algebra: host weights of the evaluations
+
+
+def _initial_weights(bc, alpha, lam, num_instances) -> list[ExtPair]:
+    """sum_i alpha^i (e0 + bc(e1 - e0) + lam(e2 + bc(e3 - e2))) over the
+    circuit outputs [n0, n1, d0, d1] of each instance, as weights."""
+    one_bc = host.ext_sub(_ONE, bc)
+    out = []
+    for a in host.ext_powers(alpha, num_instances):
+        al = host.ext_mul(a, lam)
+        out += [host.ext_mul(a, one_bc), host.ext_mul(a, bc),
+                host.ext_mul(al, one_bc), host.ext_mul(al, bc)]
+    return out
+
+
+def _next_weights(bc, alpha, lam, num_instances) -> list[ExtPair]:
+    """Per instance evals [n_lo, d_hi, n_hi, d_lo]:
+    sum_i alpha^i (e0 + bc(e2 - e0) + lam(e3 + bc(e1 - e3)))."""
+    one_bc = host.ext_sub(_ONE, bc)
+    out = []
+    for a in host.ext_powers(alpha, num_instances):
+        al = host.ext_mul(a, lam)
+        out += [host.ext_mul(a, one_bc), host.ext_mul(al, bc),
+                host.ext_mul(a, bc), host.ext_mul(al, one_bc)]
+    return out
+
+
+def _final_lookup_weights(bc, alpha, num_instances) -> list[ExtPair]:
+    """Per instance evals [d_hi, d_lo]: sum_i alpha^i (e1 + bc(e0 - e1))."""
+    one_bc = host.ext_sub(_ONE, bc)
+    out = []
+    for a in host.ext_powers(alpha, num_instances):
+        out += [host.ext_mul(a, bc), host.ext_mul(a, one_bc)]
+    return out
 
 
 def _dot(weights, values) -> ExtPair:

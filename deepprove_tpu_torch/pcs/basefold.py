@@ -36,6 +36,7 @@ from ..fields.gf import GF2
 from ..hashing import poseidon2
 from ..hashing.poseidon2_cuda import compress_level
 from ..poly import mle as mle_mod
+from ..transcript.session import label_chunks
 from . import ntt
 from .merkle import MerkleTree
 from .ntt import bit_reverse_perm, geom_powers
@@ -110,7 +111,7 @@ def setup(max_message_size_log: int, **kw) -> BasefoldParams:
 class BasefoldCommitment:
     """Verifier-side commitment: root + shape."""
 
-    root: Digest
+    root: Digest  # a glue.Deferred of the device root until a prove's proof is materialized
     num_vars: int
     num_polys: int = 1  # always 1 here; kept so proofs lower as the JAX package's do
     is_trivial: bool = False
@@ -147,9 +148,13 @@ def commit(params: BasefoldParams, evals: torch.Tensor) -> CommitmentWithWitness
     return commit_many(params, [evals])[0]
 
 
-def commit_many(params: BasefoldParams, evals_list) -> list:
+def commit_many(params: BasefoldParams, evals_list, host_roots: bool = True) -> list:
     """`commit` of each polynomial; the Merkle trees of codewords of one
-    size are built together (`MerkleTree.from_leaves_many`)."""
+    size are built together (`MerkleTree.from_leaves_many`). The roots are
+    read to the host in one copy, or with `host_roots=False` stay on the
+    device as `glue.Deferred` nodes that `glue.materialize` lowers to
+    digests with the rest of the proof (a prove's witness commitments,
+    which its proof carries and its transcript does not absorb)."""
     words = []
     for evals in evals_list:
         lg_n = evals.shape[0].bit_length() - 1
@@ -159,12 +164,18 @@ def commit_many(params: BasefoldParams, evals_list) -> list:
         else:
             words.append((lg_n, False, *_encode(params, evals)))
     trees = MerkleTree.from_leaves_many([codeword for *_, codeword in words])
+    if not trees:
+        return []
+    if host_roots:
+        roots = [tuple(r) for r in gf.to_u64(torch.stack([t.root_dev for t in trees])).tolist()]
+    else:
+        roots = [glue.Deferred(t.root_dev, tuple) for t in trees]
     return [
         CommitmentWithWitness(
-            BasefoldCommitment(root=tree.root, num_vars=lg_n, is_trivial=trivial),
+            BasefoldCommitment(root=root, num_vars=lg_n, is_trivial=trivial),
             codeword=codeword, bh_evals=[bh], tree=tree,
         )
-        for (lg_n, trivial, bh, codeword), tree in zip(words, trees)
+        for (lg_n, trivial, bh, codeword), tree, root in zip(words, trees, roots)
     ]
 
 
@@ -216,10 +227,10 @@ def _commit_phase_session(
     msg = _sumcheck_first_round(eq, running_evals)
     trees, msgs, roots = [], [], []
     oracle = codeword
+    label = (label_chunks(COMMIT_ROUND_LABEL),)
     for i in range(num_rounds):
         msgs.append(msg)
-        dt.append_exts(msg)
-        r = dt.get_and_append_challenge(COMMIT_ROUND_LABEL)
+        r = dt.step(arr=msg, labels=label, k=1).reshape(())
         if i < num_rounds - 1:
             if oracle_merger is not None and i > 0:
                 oracle = oracle_merger(i, oracle)
@@ -231,8 +242,8 @@ def _commit_phase_session(
             msg = _sumcheck_first_round(eq, running_evals)
             tree = MerkleTree.from_leaves(oracle)
             trees.append(tree)
-            roots.append(tree.root)
-            dt.append_constants(tree.root)
+            roots.append(tree.root_dev)  # absorbed from the device, lowered at the end
+            dt.append_base(tree.root_dev)
         else:
             running_evals = mle_mod.fix_variable(running_evals, r)
             k = running_evals.shape[0].bit_length() - 1
@@ -249,7 +260,8 @@ def _sample_queries(params: BasefoldParams, transcript, size: int) -> list[int]:
 
 
 def _sample_queries_session(params: BasefoldParams, dt, size: int) -> list[int]:
-    return [c[0] % size for c in dt.challenge_pairs(params.num_queries, QUERY_LABEL)]
+    """The query indices: the one host read of an opening."""
+    return [c[0] % size for c in dt.challenges_to_host(QUERY_LABEL, params.num_queries)]
 
 
 # ---------------------------------------------------------------------------
@@ -300,20 +312,24 @@ def _query_openings(comm_items, trees, indices, device, single: bool) -> list:
         )
         entries.append([cw[2 * take], cw[2 * take + 1], paths])
     n = len(comm_items)
-    comm_h, per_tree = glue.materialize([entries[:n], entries[n:]])
-    out = []
-    for qi in range(q):
-        pairs = [(c[0][qi], c[1][qi]) for c in comm_h]
-        paths = [c[2][qi] for c in comm_h]
-        out.append(
-            QueryOpening(
-                commitment_pair=pairs[0] if single else pairs,
-                commitment_path=paths[0] if single else paths,
-                oracle_pairs=[(t[0][qi], t[1][qi]) for t in per_tree],
-                oracle_paths=[t[2][qi] for t in per_tree],
+
+    def build(host_entries):
+        comm_h, per_tree = host_entries[:n], host_entries[n:]
+        out = []
+        for qi in range(q):
+            pairs = [(c[0][qi], c[1][qi]) for c in comm_h]
+            paths = [c[2][qi] for c in comm_h]
+            out.append(
+                QueryOpening(
+                    commitment_pair=pairs[0] if single else pairs,
+                    commitment_path=paths[0] if single else paths,
+                    oracle_pairs=[(t[0][qi], t[1][qi]) for t in per_tree],
+                    oracle_paths=[t[2][qi] for t in per_tree],
+                )
             )
-        )
-    return out
+        return out
+
+    return glue.Deferred(entries, build)
 
 
 def open_session(params, comm: CommitmentWithWitness, point: GF2, dt) -> BasefoldProof:
@@ -342,7 +358,7 @@ def open(params, comm, point, transcript) -> BasefoldProof:
     if not isinstance(point, GF2):
         point = gf.ext_from_pairs(point, device)
     dt = DeviceTranscript.from_host(transcript, device)
-    return glue.materialize(open_session(params, comm, point, dt))
+    return dt.materialize(open_session(params, comm, point, dt), transcript)
 
 
 # ---------------------------------------------------------------------------
@@ -622,7 +638,7 @@ def batch_open_session(params, polys, comms, points, evals, dt) -> BasefoldProof
       3. per-commitment RLC coeffs eq(challenges[:n_pt], point) eq_t;
       4. batched commit phase folding codewords in at matching sizes;
       5. shared query phase over all commitments + fold trees."""
-    from ..sumcheck.prover import VirtualPolynomial, prove_device
+    from ..sumcheck import VirtualPolynomial, prove_device
 
     device = dt.device
     num_vars = max(c.num_vars for c in comms)
@@ -700,7 +716,7 @@ def batch_open(params, polys, comms, points, evals, transcript) -> BasefoldProof
     device = comms[0].codeword.device
     points = [p if isinstance(p, GF2) else gf.ext_from_pairs(p, device) for p in points]
     dt = DeviceTranscript.from_host(transcript, device)
-    return glue.materialize(batch_open_session(params, polys, comms, points, evals, dt))
+    return dt.materialize(batch_open_session(params, polys, comms, points, evals, dt), transcript)
 
 
 def _scale(poly, c: GF2) -> GF2:

@@ -8,8 +8,8 @@ As in the JAX package's `pcs/merkle.py` (Poseidon half):
     levels of equal-size trees built together in one call.
 
 Levels are plane-major int64 (4, M) tensors, row e holding element e of
-every digest. Roots are 4-tuples of ints; host paths are (Q, depth, 4)
-uint64 arrays.
+every digest. A root is a (4,) device tensor (`root_dev`) or a 4-tuple of
+ints (`root`); host paths are (Q, depth, 4) uint64 arrays.
 """
 
 from __future__ import annotations
@@ -79,8 +79,14 @@ class MerkleTree:
         return trees
 
     @property
+    def root_dev(self) -> torch.Tensor:
+        """The root digest as a (4,) int64 tensor on the tree's device."""
+        return self.levels[-1][:, 0]
+
+    @property
     def root(self) -> Digest:
-        return tuple(gf.to_u64(self.levels[-1][:, 0]).tolist())
+        """The root as host ints (one read)."""
+        return tuple(gf.to_u64(self.root_dev).tolist())
 
     @property
     def depth(self) -> int:

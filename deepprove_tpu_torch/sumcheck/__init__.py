@@ -1,4 +1,6 @@
-from .prover import SumcheckProof, VirtualPolynomial, prove, prove_device
+from .fused import prove_device
+from .fused import prove_fused as prove
+from .prover import SumcheckProof, VirtualPolynomial
 from .verifier import interpolate_uni_poly, verify
 
 __all__ = [

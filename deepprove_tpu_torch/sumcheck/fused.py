@@ -1,0 +1,235 @@
+"""The fused sumcheck: every round on the device, the Fiat-Shamir sponge
+included, with no host read, as the JAX package's `sumcheck/fused.py`.
+
+`prove_device(vp, dt)` absorbs [n, max_degree] and proves `vp` against the
+session `dt`. On a CUDA session the MLEs are stacked into one (m, 2^n)
+extension array (two int64 planes) and `csrc/sumcheck.cu` runs the rounds:
+while the rows are longer than 2^(TAIL_LOG + 1), each round is a grid-wide
+`round_kernel` (fold the previous challenge, form the message) and a
+one-block `finish_kernel` (sum the message, absorb it, squeeze the next
+challenge); then one `tail_kernel` runs every remaining round in one block.
+A sumcheck of n > TAIL_LOG variables is 2 (n - TAIL_LOG) + 1 launches,
+one otherwise, besides the sponge launch of [n, max_degree]. On a CPU
+session the plain version runs: the per-round path of `prover.py` over the
+CPU state, whose messages, challenges and final evaluations the kernels
+equal bit for bit (the split at the tail changes none of them).
+
+Unlike the JAX package, nothing is padded to size buckets: padding bounded
+XLA's compiles, and the messages are the same without it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import kernels
+from ..fields import gf
+from ..fields.gf import GF2
+from . import prover
+from .prover import ProverOutput, SumcheckProof, VirtualPolynomial
+
+# Rounds run in the one-block tail once a row is at most 2^TAIL_LOG long
+# after the fold. Measured on an H100 (PERF.md, the tail sweep): at 10 every
+# main-path shape's device time is within 5 % of its best tail start (2 to
+# 12), at 12 the batch opening's grows by a sixth, and 10 launches least.
+TAIL_LOG = 10
+MAX_DEGREE = 5  # the main path's largest: the maxpool zerocheck
+
+# Launches of each kernel since the last reset (plain ints; callers reset),
+# and the shape of the CUDA sumcheck with the most stacked rows since then
+# (num_vars, rows, the products' factor lists, degree; callers reset).
+LAUNCHES = {"sumcheck_round": 0, "sumcheck_finish": 0, "sumcheck_tail": 0}
+LARGEST = {"num_vars": 0, "rows": 0, "factors": [], "degree": 0}
+
+_LIB = None
+_CACHE: dict = {}
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = kernels.library()
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.dp_sumcheck_round.argtypes = [i, p, p, p, p, i, ll, p, p, p, i, p, p, p, p]
+        lib.dp_sumcheck_finish.argtypes = [i, p, ll, i, i, p, p, p, p]
+        lib.dp_sumcheck_tail.argtypes = [i, p, p, p, p, i, ll, i, i, p, i, p, p, p, p, p, p, p]
+        for fn in (lib.dp_sumcheck_round, lib.dp_sumcheck_finish, lib.dp_sumcheck_tail):
+            fn.restype = ctypes.c_int
+        deg, threads = ctypes.c_int(), ctypes.c_int()
+        lib.dp_sumcheck_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        lib.dp_sumcheck_limits(ctypes.byref(deg), ctypes.byref(threads))
+        if deg.value != MAX_DEGREE:
+            raise RuntimeError(f"sumcheck.cu takes degree {deg.value}, the wrapper {MAX_DEGREE}")
+        lib.threads = threads.value
+        _LIB = lib
+    return _LIB
+
+
+def _cached(key, make):
+    """A small constant tensor, built once per key (a copy from pageable host
+    memory waits for the device, so it is not made anew on every call)."""
+    if key not in _CACHE:
+        _CACHE[key] = make()
+    return _CACHE[key]
+
+
+# ---------------------------------------------------------------------------
+# the CUDA path
+# ---------------------------------------------------------------------------
+
+
+def factor_index(vp: VirtualPolynomial, degree: int, device) -> torch.Tensor:
+    """(products, degree) int32 factor rows, -1 for the constant 1."""
+    key = ("fidx", tuple(tuple(f) for _, f in vp.products), degree, str(device))
+    return _cached(key, lambda: torch.tensor(
+        [list(f) + [-1] * (degree - len(f)) for _, f in vp.products], dtype=torch.int32,
+    ).to(device))
+
+
+def coefficients(vp: VirtualPolynomial, device) -> GF2:
+    """The products' coefficients as contiguous GF2 (products,) on `device`
+    (host-pair coefficients made once per list)."""
+    if vp.coeffs_dev is None and all(not isinstance(c, GF2) for c, _ in vp.products):
+        key = ("coeffs", tuple((int(a), int(b)) for (a, b), _ in vp.products), str(device))
+        return _cached(key, lambda: prover._coeffs(vp, device))
+    c = prover._coeffs(vp, device)
+    return GF2(c.a0.contiguous(), c.a1.contiguous())
+
+
+def stack_planes(vp: VirtualPolynomial):
+    """The MLEs as two fresh contiguous (m, 2^n) int64 planes (a0, a1)."""
+    rows = [gf.to_ext(m) for m in vp.mles]
+    width = 1 << vp.num_vars
+    a0 = torch.cat([r.a0.reshape(-1, width) for r in rows])
+    a1 = torch.cat([r.a1.reshape(-1, width) for r in rows])
+    return a0, a1
+
+
+def _check(degree: int, device) -> None:
+    if device.type != "cuda":
+        raise ValueError(f"the sumcheck kernels take CUDA tensors, got {device}")
+    if not 1 <= degree <= MAX_DEGREE:
+        raise ValueError(f"the sumcheck kernels take degree 1..{MAX_DEGREE}, got {degree}")
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def round_cuda(src, dst, m: int, length: int, chals, rnd: int, n: int, fidx, coeffs: GF2,
+               partials, degree: int) -> int:
+    """round_kernel on rows of `length` in src (a0, a1): fold by challenge
+    rnd - 1 of chals (2, n) into dst (skipped when rnd == 0; dst None),
+    partial messages into `partials`. Returns the number of blocks."""
+    _check(degree, src[0].device)
+    lib = _lib()
+    fold = rnd > 0
+    count = length // 4 if fold else length // 2
+    if count < 1:
+        raise ValueError(f"a round needs rows of at least {4 if fold else 2}, got {length}")
+    blocks = -(-count // lib.threads)
+    if partials.numel() < blocks * 2 * (degree + 1):
+        raise ValueError("partials scratch too small")
+    r0 = chals[0, rnd - 1] if fold else None
+    r1 = chals[1, rnd - 1] if fold else None
+    with torch.cuda.device(src[0].device):
+        err = lib.dp_sumcheck_round(
+            degree, src[0].data_ptr(), src[1].data_ptr(),
+            _ptr(dst[0]) if fold else None, _ptr(dst[1]) if fold else None, m, length,
+            _ptr(r0), _ptr(r1), fidx.data_ptr(), fidx.shape[0], coeffs.a0.data_ptr(),
+            coeffs.a1.data_ptr(), partials.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    kernels.check(err, "sumcheck round kernel launch")
+    LAUNCHES["sumcheck_round"] += 1
+    return blocks
+
+
+def finish_cuda(partials, blocks: int, rnd: int, n: int, msgs, chals, state, degree: int) -> None:
+    """finish_kernel: message `rnd` from the partials into msgs (2, n,
+    degree + 1), absorbed; its challenge into chals (2, n)."""
+    _check(degree, state.device)
+    lib = _lib()
+    with torch.cuda.device(state.device):
+        err = lib.dp_sumcheck_finish(
+            degree, partials.data_ptr(), blocks, rnd, n, msgs.data_ptr(), chals.data_ptr(),
+            state.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    kernels.check(err, "sumcheck finish kernel launch")
+    LAUNCHES["sumcheck_finish"] += 1
+
+
+def tail_cuda(cur, other, m: int, length: int, rnd0: int, n: int, fidx, coeffs: GF2, msgs,
+              chals, state, finals, degree: int) -> None:
+    """tail_kernel: rounds rnd0..n-1 on rows of `length` in cur (folding
+    first by challenge rnd0 - 1 when rnd0 > 0), ping-ponging with `other`
+    (room for rows of length / 2); both are overwritten. The last fold
+    goes into finals (2, m)."""
+    _check(degree, state.device)
+    lib = _lib()
+    if n - rnd0 < 1 or length != 1 << (n - rnd0 + (1 if rnd0 else 0)):
+        raise ValueError(f"tail of rounds {rnd0}..{n - 1} on rows of {length}")
+    with torch.cuda.device(state.device):
+        err = lib.dp_sumcheck_tail(
+            degree, cur[0].data_ptr(), cur[1].data_ptr(), other[0].data_ptr(),
+            other[1].data_ptr(), m, length, rnd0, n, fidx.data_ptr(), fidx.shape[0],
+            coeffs.a0.data_ptr(), coeffs.a1.data_ptr(), msgs.data_ptr(), chals.data_ptr(),
+            state.data_ptr(), finals.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    kernels.check(err, "sumcheck tail kernel launch")
+    LAUNCHES["sumcheck_tail"] += 1
+
+
+def prove_rounds_cuda(vp: VirtualPolynomial, dt, n: int, degree: int):
+    """The n >= 1 rounds by the kernels on a CUDA session (after [n, degree]
+    is absorbed): (msgs GF2 (n, degree + 1), chals GF2 (n,), finals GF2 (m,))."""
+    dev = dt.device
+    s0, s1 = stack_planes(vp)
+    m, length = s0.shape
+    fidx = factor_index(vp, degree, dev)
+    coeffs = coefficients(vp, dev)
+    if m > LARGEST["rows"]:
+        LARGEST.update(num_vars=n, rows=m, factors=[list(f) for _, f in vp.products], degree=degree)
+    msgs = torch.empty((2, n, degree + 1), dtype=torch.int64, device=dev)
+    chals = torch.empty((2, n), dtype=torch.int64, device=dev)
+    finals = torch.empty((2, m), dtype=torch.int64, device=dev)
+    half = torch.empty((2, m * (length // 2)), dtype=torch.int64, device=dev)
+    cur, other = (s0, s1), (half[0], half[1])
+    above = max(0, n - TAIL_LOG)
+    if above:
+        partials = torch.empty(
+            -(-(length // 2) // _lib().threads) * 2 * (degree + 1), dtype=torch.int64, device=dev
+        )
+    for rnd in range(above):
+        blocks = round_cuda(cur, other, m, length, chals, rnd, n, fidx, coeffs, partials, degree)
+        finish_cuda(partials, blocks, rnd, n, msgs, chals, dt.state, degree)
+        if rnd:
+            cur, other, length = other, cur, length // 2
+    tail_cuda(cur, other, m, length, above, n, fidx, coeffs, msgs, chals, dt.state, finals, degree)
+    return GF2(msgs[0], msgs[1]), GF2(chals[0], chals[1]), GF2(finals[0], finals[1])
+
+
+def prove_device(vp: VirtualPolynomial, dt) -> ProverOutput:
+    """Sumcheck against a session transcript; the output holds device values
+    (lower with glue.materialize)."""
+    if dt.device.type == "cpu":
+        return prover.prove_device(vp, dt)
+    n, degree = vp.num_vars, vp.max_degree
+    dt.append_constants([n, degree])
+    if n == 0:
+        stacked = prover._stacked(vp, degree)
+        proof = SumcheckProof(point=gf.ext_zeros((0,), dt.device),
+                              round_messages=gf.ext_zeros((0, degree + 1), dt.device))
+        return ProverOutput(proof=proof, final_evals=stacked[: vp.num_mles].reshape(-1))
+    msgs, chals, finals = prove_rounds_cuda(vp, dt, n, degree)
+    return ProverOutput(proof=SumcheckProof(point=chals, round_messages=msgs), final_evals=finals)
+
+
+def prove_fused(vp: VirtualPolynomial, transcript) -> ProverOutput:
+    """Host-transcript API: proves on the device of the MLEs; returns host
+    values and advances `transcript`, in one read."""
+    from ..transcript.session import DeviceTranscript
+
+    dt = DeviceTranscript.from_host(transcript, vp.mles[0].device)
+    return dt.materialize(prove_device(vp, dt), transcript)

@@ -1,17 +1,19 @@
-"""Sumcheck prover over torch tensors.
+"""Sumcheck prover over torch tensors: the plain per-round path.
 
 Proves sum_{b in {0,1}^n} sum_i c_i * prod_j f_ij(b) with one univariate
 message per round, with the transcript discipline of the JAX package's
-`sumcheck/prover.py` and `fused.py:prove_device`: absorb n and max_degree,
-then per round absorb the message evaluations at t = 0..max_degree and
-squeeze a b"Internal round" challenge. Each round folds the previous
-challenge into every MLE and computes the message on the device; the
-session transcript copies the message down and hands the challenge back.
-The MLEs fold as one stacked (m, 2^n) array and a round gathers every
-product's factors from it at once, so its launches do not grow with the
-number of products (a logup level has three an instance). A product of
-lower degree than max_degree takes a row of ones for its missing factors.
-The messages equal the JAX prover's.
+`sumcheck/prover.py`: absorb n and max_degree, then per round absorb the
+message evaluations at t = 0..max_degree and squeeze a b"Internal round"
+challenge. Each round folds the previous challenge into every MLE and
+computes the message in eager torch ops, one session call to absorb and
+squeeze. The MLEs fold as one stacked (m, 2^n) array and a round gathers
+every product's factors from it at once, so its ops do not grow with the
+number of products. A product of lower degree than max_degree takes a row
+of ones for its missing factors. The messages equal the JAX prover's.
+
+The main path runs `fused.py` (the rounds as CUDA kernels on a CUDA
+session); on a CPU session `fused.prove_device` runs this path, which is
+also the plain version the kernels are held against.
 """
 
 from __future__ import annotations
@@ -22,10 +24,12 @@ import torch
 
 from ..fields import gf
 from ..fields.gf import GF2
+from ..transcript.session import label_chunks
 
 ExtPair = tuple[int, int]
 
 ROUND_LABEL = b"Internal round"
+ROUND_CHUNKS = tuple(label_chunks(ROUND_LABEL))
 
 
 @dataclasses.dataclass
@@ -150,8 +154,10 @@ def _fold_rows(stacked: GF2, r: GF2) -> GF2:
 
 def prove_device(vp: VirtualPolynomial, dt) -> ProverOutput:
     """Sumcheck against a session transcript; the output holds device
-    values (lower with glue.materialize)."""
-    device = dt.device
+    values (lower with glue.materialize). The rounds run on the device of
+    the MLEs, which may differ from the session's (the CUDA kernels' plain
+    reference runs torch on the card against a CPU session)."""
+    device = vp.mles[0].device
     n = vp.num_vars
     degree = vp.max_degree
     dt.append_constants([n, degree])
@@ -163,9 +169,9 @@ def prove_device(vp: VirtualPolynomial, dt) -> ProverOutput:
         if rnd:
             stacked = _fold_rows(stacked, point[-1])
         msg = _round_message(stacked, idx, coeffs, degree)
-        dt.append_exts(msg)
         msgs.append(msg)
-        point.append(dt.get_and_append_challenge(ROUND_LABEL))
+        r = dt.step(arr=msg, labels=(ROUND_CHUNKS,), k=1)
+        point.append(GF2(r.a0.to(device), r.a1.to(device)).reshape(()))
     if n:
         stacked = _fold_rows(stacked, point[-1])
         proof = SumcheckProof(point=gf.ext_stack(point), round_messages=gf.ext_stack(msgs))
@@ -177,9 +183,9 @@ def prove_device(vp: VirtualPolynomial, dt) -> ProverOutput:
 
 
 def prove(vp: VirtualPolynomial, transcript) -> ProverOutput:
-    """Host-transcript API: runs on the device of the MLEs, returns host values."""
-    from .. import glue
+    """Host-transcript API: runs on the device of the MLEs, returns host
+    values and advances `transcript`."""
     from ..transcript.session import DeviceTranscript
 
     dt = DeviceTranscript.from_host(transcript, vp.mles[0].device)
-    return glue.materialize(prove_device(vp, dt))
+    return dt.materialize(prove_device(vp, dt), transcript)

@@ -39,7 +39,7 @@ class CommitmentContext:
                 polys.append(poly)
         table_cols = {tt: tt.committed_columns() for tt in sorted(table_types)}
         table_cols = {tt: cols for tt, cols in table_cols.items() if cols is not None}
-        comms = iter(self.commit_many(polys + list(table_cols.values())))
+        comms = iter(basefold.commit_many(self.params, polys + list(table_cols.values())))
         self.model_comms = {}
         for (node_id, pid), poly in zip(keys, polys):
             self.model_comms.setdefault(node_id, {})[pid] = (next(comms), poly)
@@ -58,9 +58,10 @@ class CommitmentContext:
             basefold.write_commitment(self.table_comms[tt][0].commitment, transcript)
 
     def commit_many(self, evals_list) -> list:
-        """Commitments at the context's parameters, the trees of equal-size
-        polynomials built together."""
-        return basefold.commit_many(self.params, evals_list)
+        """A prove's witness commitments at the context's parameters, the
+        trees of equal-size polynomials built together; their roots stay on
+        the device until the proof is materialized (no read in the prove)."""
+        return basefold.commit_many(self.params, evals_list, host_roots=False)
 
 
 @dataclasses.dataclass

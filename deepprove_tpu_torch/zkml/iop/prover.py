@@ -172,8 +172,7 @@ class Prover:
             steps=self.proofs, table_proofs=table_proofs,
             commit=self.commit_prover.prove(self.dt), shared_logup=shared_logup,
         )
-        self.dt.sync_to_host(self.transcript)
-        return glue.materialize(proof)
+        return self.dt.materialize(proof, self.transcript)
 
 
 def claims_for_node(model, nid, claims_by_layer, out_claims, out_nodes):

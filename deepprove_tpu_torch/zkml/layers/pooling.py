@@ -23,6 +23,7 @@ import torch
 
 from ... import glue
 from ...fields import gf, host
+from ...fields.gf import GF2
 from ...lookup.logup import Claim
 from ...poly import mle as mle_mod
 from ...sumcheck import VirtualPolynomial, prove_device
@@ -45,6 +46,13 @@ def parity_multiplicands(r1: ExtPair, r2: ExtPair) -> list[ExtPair]:
     """eq of the two parity bits at (r1, r2), in diff order k = 2a + b."""
     omr1, omr2 = host.ext_sub((1, 0), r1), host.ext_sub((1, 0), r2)
     return [host.ext_mul(omr1, omr2), host.ext_mul(omr1, r2), host.ext_mul(r1, omr2), host.ext_mul(r1, r2)]
+
+
+def parity_multiplicands_device(r1: GF2, r2: GF2) -> GF2:
+    """`parity_multiplicands` of two device GF2 () challenges, as GF2 (4,)."""
+    one = gf.ext_ones((), r1.device)
+    omr1, omr2 = gf.ext_sub(one, r1), gf.ext_sub(one, r2)
+    return gf.ext_stack([gf.ext_mul(omr1, omr2), gf.ext_mul(omr1, r2), gf.ext_mul(r1, omr2), gf.ext_mul(r1, r2)])
 
 
 def variable_gap(width: int) -> int:
@@ -99,7 +107,7 @@ class Maxpool2D:
         (wit,) = prover.lookup_witnesses_for(node_id)
         lk_claims = prover.shared_claims_for(node_id, 0)  # 4, at one point
         num_vars = wit.column_evals[0].shape[0].bit_length() - 1
-        bc = dt.challenge_pairs(1, b"batch_pooling")[0]
+        bc = dt.get_and_append_challenge(b"batch_pooling")
 
         # MLE order [diff_0..diff_3, beta, out, last_beta]
         vp = VirtualPolynomial.new(num_vars)
@@ -112,7 +120,7 @@ class Maxpool2D:
         for d in diffs:
             vp.add_product(None, [d, i_beta])
         vp.add_product(None, [i_out, i_lb])
-        vp.coeffs_dev = dt.push(host.ext_powers(bc, len(vp.products)))  # 1, bc, ..., bc^5
+        vp.coeffs_dev = gf.ext_powers(bc, len(vp.products))  # 1, bc, ..., bc^5
 
         out = prove_device(vp, dt)
         zc_point = out.proof.point
@@ -125,12 +133,12 @@ class Maxpool2D:
             commitments.append(comm.commitment)
 
         # the input claim, with a fresh challenge for both parity bits
-        r1_pair = dt.challenge_pairs(1, b"input_batching")[0]
-        mults = dt.push(parity_multiplicands(r1_pair, r1_pair) + [r1_pair])
+        r1 = dt.get_and_append_challenge(b"input_batching")
+        mults = parity_multiplicands_device(r1, r1)
         diff_evals, output_eval = zerocheck_evals[:4], zerocheck_evals[4]
-        in_eval = gf.ext_sum_axis(gf.ext_mul(mults[:4], gf.ext_sub(output_eval, diff_evals)), 0)
+        in_eval = gf.ext_sum_axis(gf.ext_mul(mults, gf.ext_sub(output_eval, diff_evals)), 0)
         gap = variable_gap(self.input_shape[2])
-        r1 = mults[4:]
+        r1 = r1.reshape(1)
         point = gf.ext_concatenate([r1, zc_point[:gap], r1, zc_point[gap:]])
         prover.push_proof(
             node_id,

@@ -88,7 +88,7 @@ class Requant:
         clamping_wit, shifted_wit = prover.lookup_witnesses_for(node_id)
         clamping_claims = prover.shared_claims_for(node_id, 0)
         shifted_claims = prover.shared_claims_for(node_id, 1)
-        bc = dt.challenge_pairs(1, b"requant_batching")[0]
+        bc = dt.get_and_append_challenge(b"requant_batching")
 
         clamp_cols = clamping_wit.column_evals  # [in, out]
         chunk_cols = shifted_wit.column_evals
@@ -108,7 +108,7 @@ class Requant:
         vp.add_product(None, [i_in, i_cb])
         for j in range(len(chunk_cols)):
             vp.add_product(None, [i_sb, i_chunk + j])
-        vp.coeffs_dev = dt.push(host.ext_powers(bc, len(vp.products)))  # 1, bc, bc^2, ...
+        vp.coeffs_dev = gf.ext_powers(bc, len(vp.products))  # 1, bc, bc^2, ...
 
         out = prove_device(vp, dt)
         point = out.proof.point

@@ -89,14 +89,14 @@ class TableType:
         self._check()
         return None
 
-    def generate_challenge(self, transcript) -> ExtPair:
-        """The table's column-separation challenge (host pair); `transcript`
-        is a host transcript or a device session (both share the sponge)."""
+    def generate_challenge(self, transcript):
+        """The table's column-separation challenge: a host pair from a host
+        transcript, a device GF2 () from a session."""
         self._check()
         if self.kind == "range":
-            return (1, 0)
-        transcript.append_message(b"Relu" if self.kind == "relu" else b"Clamping")
-        return transcript.challenger.sample_ext()
+            dev = getattr(transcript, "device", None)
+            return (1, 0) if dev is None else gf.ext_ones((), dev)
+        return transcript.get_and_append_challenge(b"Relu" if self.kind == "relu" else b"Clamping")
 
     def evaluate_table_columns(self, point: list[ExtPair]) -> list[ExtPair]:
         """The verifier's evaluations of the table columns at `point`."""
@@ -140,8 +140,7 @@ class ChallengeStorage:
     @staticmethod
     def initialise(table_types, transcript) -> "ChallengeStorage":
         """b"table_constant", then each table's challenge in sorted order."""
-        transcript.append_message(b"table_constant")
-        constant = transcript.challenger.sample_ext()
+        constant = transcript.get_and_append_challenge(b"table_constant")
         cmap = {tt.name(): tt.generate_challenge(transcript) for tt in sorted(table_types)}
         return ChallengeStorage(constant_challenge=constant, challenge_map=cmap)
 

@@ -16,10 +16,14 @@ do; each runs setup and a warm prove, then prints:
      chains, its phi tables, the maxpools, and the FFT rows of inference),
      each wrapped (in this script only) with a device synchronize on entry
      and exit, so queued device work is charged to the step that queued it;
-  2. `profile`: one prove under torch.profiler (CUDA activity): kernel
-     launches, summed kernel time, the device's busy share of an
-     unprofiled warm prove, the kernels that take the most time, and the
-     Merkle-compression kernel's own time and launches;
+  2. `profile`: one prove under torch.profiler (CPU and CUDA activity):
+     kernel launches, summed kernel time, the device's busy share of an
+     unprofiled warm prove, the kernels that take the most time, the
+     Merkle-compression kernel's own time and launches, the launches made
+     inside the sumchecks (each sumcheck a named range) and their device
+     time, each hand kernel's launches; then one more warm prove under
+     torch.cuda.set_sync_debug_mode("warn"), counting torch's
+     synchronizing calls by the line that made them;
   3. `kernel`: what limits the Merkle-compression kernel. Its SASS opcode
      mix and the length of each loop body (instructions from a backward
      branch's target to the branch), and the rate at which the card issues
@@ -32,6 +36,7 @@ Prints one JSON line per part (`path` names the model). Needs a CUDA device.
 
 from __future__ import annotations
 
+import bisect
 import collections
 import inspect
 import json
@@ -224,7 +229,8 @@ def profile_path(cs, path) -> None:
     from deepprove_tpu_torch import glue
     from deepprove_tpu_torch.lookup import logup
     from deepprove_tpu_torch.pcs import basefold, merkle, ntt
-    from deepprove_tpu_torch.sumcheck import prover as sc_prover
+    from deepprove_tpu_torch import sumcheck as sumcheck_pkg  # the batch opening's prove_device
+    from deepprove_tpu_torch.sumcheck import fused
     from deepprove_tpu_torch.transcript import BasicTranscript
     from deepprove_tpu_torch.zkml import commit
     from deepprove_tpu_torch.zkml.iop import Context, Prover
@@ -251,7 +257,7 @@ def profile_path(cs, path) -> None:
         (dense.Dense, "prove", "dense_layer"),
         (pooling.Maxpool2D, "prove", "maxpool_layer"),
         (commit.CommitmentProver, "prove", "commit_open"),
-        (sc_prover, "prove_device", "sumcheck"),
+        (fused, "prove_device", "sumcheck"),
         (basefold, "commit_many", "basefold_commit"),
         (basefold, "_commit_phase_session", "basefold_commit_phase"),
         (basefold, "_query_openings", "basefold_query_openings"),
@@ -259,10 +265,10 @@ def profile_path(cs, path) -> None:
         (glue, "materialize", "materialize"),
     ]
     originals = [(o, n, _wrap(o, n, table, k)) for o, n, k in targets]
-    by_name = (dense, requant, pooling, logup, commit)  # modules that bound prove_device at import
+    by_name = (dense, requant, pooling, logup, commit, sumcheck_pkg)  # bound prove_device by name
     for mod in by_name:
-        mod.prove_device = sc_prover.prove_device
-    convolution.prove_device = sc_prover.prove_device
+        mod.prove_device = fused.prove_device
+    convolution.prove_device = fused.prove_device
     conv_steps = ConvSteps(table)
     conv_steps.install()
     total_ms, _ = cs.wall_ms(lambda: Prover(ctx, BasicTranscript(b"m2vec"), device="cuda").prove(trace))
@@ -270,7 +276,7 @@ def profile_path(cs, path) -> None:
     for owner, name, raw in originals:
         setattr(owner, name, raw)
     for mod in by_name + (convolution,):
-        mod.prove_device = sc_prover.prove_device
+        mod.prove_device = fused.prove_device
     print(json.dumps({
         "part": "components", "path": path, "warm_prove_ms": warm_ms, "synced_prove_ms": total_ms,
         "inclusive_ms": {k: v[0] * 1e3 for k, v in table.items()},
@@ -278,28 +284,75 @@ def profile_path(cs, path) -> None:
         "card": cs.nvidia_smi("name,power.limit"),
     }), flush=True)
 
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    # one prove under the profiler, each sumcheck in a named range
+    plain_prove_device = fused.prove_device
+
+    def ranged(vp, dt):
+        with record_function("sumcheck"):
+            return plain_prove_device(vp, dt)
+
+    for mod in (fused,) + by_name + (convolution,):
+        mod.prove_device = ranged
+    cs.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         Prover(ctx, BasicTranscript(b"m2vec"), device="cuda").prove(trace)
         torch.cuda.synchronize()
+    launches_by_kernel = cs.read_launches()
+    for mod in (fused,) + by_name + (convolution,):
+        mod.prove_device = plain_prove_device
     # the raw kineto events: building the profiler's FunctionEvent tree for
     # millions of launches takes longer than the prove itself
     per_kernel = collections.defaultdict(lambda: [0.0, 0])
+    windows, launch_at, kernel_us_by_corr = [], [], {}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == torch.autograd.DeviceType.CUDA:
             rec = per_kernel[e.name()[:160]]
             rec[0] += e.duration_ns() / 1e3
             rec[1] += 1
+            kernel_us_by_corr[e.correlation_id()] = e.duration_ns() / 1e3
+        elif e.name() == "sumcheck":
+            windows.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+        elif "LaunchKernel" in e.name():
+            launch_at.append((e.start_ns(), e.correlation_id()))
+    windows.sort()
+    in_sumcheck = []
+    for t, corr in launch_at:
+        i = bisect.bisect_right(windows, (t, float("inf"))) - 1
+        if i >= 0 and windows[i][0] <= t <= windows[i][1]:
+            in_sumcheck.append(corr)
     kernel_us = sum(v[0] for v in per_kernel.values())
     merkle_k = [v for k, v in per_kernel.items() if cs.KERNEL in k]
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:10]
+
+    # one warm prove with torch's synchronizing calls counted
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            Prover(ctx, BasicTranscript(b"m2vec"), device="cuda").prove(trace)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = collections.Counter(
+        f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
+        if "called a synchronizing" in str(w.message)
+    )
     print(json.dumps({
         "part": "profile", "path": path, "kernel_launches": sum(v[1] for v in per_kernel.values()),
         "kernel_ms": kernel_us / 1e3, "warm_prove_ms": warm_ms,
         "busy_share": kernel_us / 1e3 / warm_ms,
+        "sumcheck_calls": len(windows),
+        "sumcheck_launches": len(in_sumcheck),
+        "sumcheck_kernel_ms": sum(kernel_us_by_corr.get(c, 0.0) for c in in_sumcheck) / 1e3,
+        "sumcheck_inclusive_ms": table["sumcheck"][0] * 1e3,
+        "launches_by_kernel": launches_by_kernel,
         "merkle_kernel_ms": sum(v[0] for v in merkle_k) / 1e3,
         "merkle_kernel_launches": sum(v[1] for v in merkle_k),
+        "synchronizing_calls": sum(syncs.values()),
+        "synchronizing_calls_by_line": dict(syncs.most_common(12)),
         "top": [{"kernel": k, "ms": v[0] / 1e3, "count": v[1]} for k, v in top],
         "card": cs.nvidia_smi("name,power.limit"),
     }), flush=True)

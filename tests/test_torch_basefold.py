@@ -131,3 +131,19 @@ def test_commit_many_equals_commit_one_at_a_time():
         assert got.commitment == one.commitment
         assert gf.to_u64(got.codeword).tolist() == gf.to_u64(one.codeword).tolist()
     assert [c.commitment.is_trivial for c in many] == [False, True, False, False, True]
+
+
+def test_witness_commit_roots_stay_on_the_device_until_materialized():
+    """`host_roots=False` reads nothing: each root is a deferred device
+    value, and materializing a structure that holds the commitments gives
+    the roots that `commit_many` reads at once."""
+    from deepprove_tpu_torch import glue
+
+    rng = np.random.default_rng(35)
+    params = basefold.setup(5, num_queries=7, basecode_msg_size_log=2)
+    evals = [gf.from_u64(rng.integers(0, P, size=n, dtype=np.uint64)) for n in (32, 4, 16)]
+    want = [c.commitment for c in basefold.commit_many(params, evals)]
+    got = [c.commitment for c in basefold.commit_many(params, evals, host_roots=False)]
+    assert all(isinstance(c.root, glue.Deferred) for c in got)
+    assert glue.materialize({"commits": got})["commits"] == want
+    assert all(isinstance(c.root, tuple) and len(c.root) == 4 for c in got)

@@ -37,6 +37,20 @@ def test_importing_every_module_loads_no_jax():
     assert int(out.stdout.strip()) > 20
 
 
+@pytest.mark.parametrize(
+    "module", ["deepprove_tpu_torch.kernels", "deepprove_tpu_torch.transcript.device",
+               "deepprove_tpu_torch.sumcheck.fused"],
+)
+def test_the_walk_reaches_the_device_transcript_and_fused_sumcheck(module):
+    """The module walk above covers the kernel modules of the device-resident
+    transcript and the fused sumcheck."""
+    import pkgutil
+
+    import deepprove_tpu_torch as p
+
+    assert module in {m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + ".")}
+
+
 def test_sources_do_not_import_jax_or_the_jax_package():
     # chip_smoke.py also imports tests/torch_reference.py (the frozen JAX proofs)
     files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tests", "torch_reference.py")]

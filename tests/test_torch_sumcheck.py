@@ -43,10 +43,16 @@ def test_session_transcript_matches_host_transcript():
     dt.append_base(gf.from_u64(base))
     dt.append_exts(gf.ext_from_pairs([tuple(int(v) for v in e) for e in ext], "cpu"))
     got = gf.ext_to_pairs(dt.get_and_append_challenges(b"lbl", 3)) + gf.ext_to_pairs(
-        dt.read_challenge()
+        dt.read_challenges(1)
     )
     assert got == want
-    assert (dt.pulls, dt.pushes) == (2, 2)
+    # absorbs and squeezes read nothing back; bringing a host transcript to
+    # the session's state is one read
+    assert dt.pulls == 0
+    synced = BasicTranscript(b"other")
+    dt.sync_to_host(synced)
+    assert dt.pulls == 1
+    assert synced.read_challenge() == host_t.read_challenge()
 
 
 def test_sumcheck_golden():
