@@ -9,7 +9,11 @@ Phases, each printing one JSON line:
                translation unit), timed; the card's name and power limit as
                nvidia-smi reports them; the Merkle kernel's SASS length,
                registers, local (spill) memory, block size and resident
-               warps an SM.
+               warps an SM; the registers, stack and local bytes of the
+               three kernels that run the duplex (sponge, finish, tail:
+               the state must stay in registers, 0 stack and 0 local
+               bytes); the tail's cooperative grid (blocks, threads,
+               blocks an SM) at each degree.
   2. kernels - the Merkle kernel against its plain torch version
                (bit-identical) on random levels at sizes on both sides of
                the block and warp boundaries and on levels of the edge
@@ -26,7 +30,10 @@ Phases, each printing one JSON line:
                path's shapes (logup levels of the LeNet's widest column
                and of Dense-4M's 39 instances, Dense-4M's batch opening,
                maxpool zerochecks of degree 5 with and without a folding
-               round above the tail).
+               round above the tail), then the kernels' edge shapes
+               (tests/torch_reference.py SUMCHECK_EDGE_CASES: one row, 600
+               products, degrees 1-5, a tail from round 0, one variable,
+               37 rows, a tail of one round).
   3. slice   - the Dense-only chain [4, 1024, 1024, 3] at the reference's
                parameters (200 queries, rate 1/2, basecode 2^7):
                Model.run -> Context.generate -> Prover.prove -> verify on
@@ -59,7 +66,10 @@ Phases, each printing one JSON line:
                instrumentation slows the rest of a process), their plain
                versions' times and their bounds: bytes for the round
                kernel, the dependent-multiply latency (measured by a chain
-               of multiplies) for the sponge, finish and tail kernels.
+               of multiplies) for the sponge and finish kernels, the
+               larger of the two for the tail (timed at the batch
+               opening's last 10 rounds, and at fused.TAIL_LOG rounds too
+               when that differs).
 Then the seconds each phase took, the kernel table line (five kernels;
 their `launches` are those of the cnn phase, the main path) and, last,
 the device line.
@@ -99,6 +109,7 @@ PCS_KW = dict(num_queries=200, basecode_msg_size_log=7)  # the reference's param
 MLP_4M_DIMS = [4, 1024, 1024, 1024, 1024, 1024, 3]  # bench.py:164 build_mlp_4m
 KERNEL = "compress_level_kernel"
 TIMED_PAIRS = 1 << 19  # the main path's largest level (the 2^21-leaf weight tree's first)
+TIMED_TAIL_ROUNDS = 10  # the tail row's shape: the batch opening's last 10 rounds, rows of 2^11
 
 
 def emit(obj) -> None:
@@ -141,15 +152,16 @@ def device_ms(fn, iters: int, kernel: str) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    durs = [e.duration_ns() for e in prof.profiler.kineto_results.events()
-            if e.device_type() == torch.autograd.DeviceType.CUDA and kernel in e.name()]
-    if not durs:
-        raise AssertionError(f"the profiler recorded no {kernel} launch")
-    return sum(durs) / len(durs) / 1e6
+    for _ in range(3):  # a session now and then delivers no kernel records: take another
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        durs = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+                if e.device_type() == torch.autograd.DeviceType.CUDA and kernel in e.name()]
+        if durs:
+            return sum(durs) / len(durs) / 1e6
+    raise AssertionError(f"the profiler recorded no {kernel} launch in 3 sessions")
 
 
 def wall_ms(fn):
@@ -175,18 +187,27 @@ def kernel_sass(so: str, kernel: str = KERNEL) -> list[tuple[int, str]]:
     return out
 
 
-def kernel_resources(so: str) -> dict:
-    """Registers, stack and local (spill) bytes of the compression kernel."""
+SPONGE_KERNELS = ("sponge_kernel", "finish_kernel", "tail_kernel")  # the kernels that run the duplex
+
+
+def kernel_resources(so: str, kernel: str = KERNEL) -> dict:
+    """Registers, stack and local (spill) bytes of `kernel` (by default the
+    compression kernel), the largest over its instances (one a degree for
+    the sumcheck kernels), from `cuobjdump -res-usage`."""
     usage = subprocess.run(["cuobjdump", "-res-usage", so], capture_output=True, text=True).stdout
     lines = usage.splitlines()
-    res = next(lines[i + 1] for i, ln in enumerate(lines) if KERNEL in ln)
-    regs, stack, local = (int(re.search(rf"{k}:(\d+)", res).group(1)) for k in ("REG", "STACK", "LOCAL"))
-    return {"registers": regs, "stack_bytes": stack, "local_bytes": local}
+    found = [lines[i + 1] for i, ln in enumerate(lines) if "Function" in ln and kernel in ln]
+    if not found:
+        raise AssertionError(f"cuobjdump lists no {kernel}")
+    regs, stack, local = (max(int(re.search(rf"{k}:(\d+)", res).group(1)) for res in found)
+                          for k in ("REG", "STACK", "LOCAL"))
+    return {"registers": regs, "stack_bytes": stack, "local_bytes": local, "instances": len(found)}
 
 
 def phase_build():
     from deepprove_tpu_torch import kernels, native
     from deepprove_tpu_torch.hashing import poseidon2_cuda
+    from deepprove_tpu_torch.sumcheck import fused
 
     t0 = time.perf_counter()
     so = kernels.build()
@@ -203,13 +224,19 @@ def phase_build():
         "threads_per_block": threads, "blocks_per_sm": blocks_per_sm,
         "resident_warps_per_sm": blocks_per_sm * threads // 32,
     }
+    # the duplex's state must stay in registers in every kernel that runs it
+    sponge_res = {k: kernel_resources(so, k) for k in SPONGE_KERNELS}
+    tail = {d: fused.tail_config(d) for d in range(1, fused.MAX_DEGREE + 1)}
     emit({
         "phase": "build", "ok": True, "nvcc_s": build_s, "gcc_s": host_build_s,
         "library": os.path.relpath(so, ROOT),
-        "card": card, "kernel": KERNEL, **stats,
+        "card": card, "kernel": KERNEL, **stats, "sponge_kernels": sponge_res,
+        "sponge_state_in_registers": all(r["stack_bytes"] == 0 and r["local_bytes"] == 0
+                                         for r in sponge_res.values()),
+        "tail_grid_by_degree": tail,
         "torch": torch.__version__, "cuda": torch.version.cuda,
     })
-    return card, stats
+    return card, {**stats, "sponge_kernels": sponge_res, "tail_grid": tail}
 
 
 def check_levels(threads: int, seed: int = 7) -> dict:
@@ -307,8 +334,9 @@ LONG_LABEL = b"a label longer than the rate of the sponge"  # 6 chunks
 
 def check_sponge(seed: int = 5, scripts: int = 8, ops: int = 40) -> dict:
     """The sponge kernel against the host challenger on random session
-    scripts (constants, base and extension arrays of odd lengths, squeezes
-    of SPONGE_KS challenges with and without labels, label triples), then
+    scripts (constants, base and extension arrays of odd lengths, some
+    longer than the kernel's 32-word batches, squeezes of SPONGE_KS
+    challenges with and without labels, label triples), then
     the permutation on single states against the plain torch one."""
     from deepprove_tpu_torch.fields import gf, host
     from deepprove_tpu_torch.hashing import poseidon2
@@ -318,13 +346,13 @@ def check_sponge(seed: int = 5, scripts: int = 8, ops: int = 40) -> dict:
 
     rng = np.random.default_rng(seed)
     P = host.P
-    challenges = mismatches = max_err = 0
+    challenges = mismatches = max_err = long_arrays = 0
     for sc in range(scripts):
         ht = BasicTranscript(b"m2vec")
         ht.append_message(b"script %d" % sc)
         dt = DeviceTranscript.from_host(ht, "cuda")
         for _ in range(ops):
-            kind = int(rng.integers(0, 6))
+            kind = int(rng.integers(0, 7))
             got = want = None
             if kind == 0:
                 vals = rng.integers(0, P, size=int(rng.integers(1, 8)), dtype=np.uint64)
@@ -348,10 +376,21 @@ def check_sponge(seed: int = 5, scripts: int = 8, ops: int = 40) -> dict:
                 label = LONG_LABEL if rng.integers(0, 2) else b"query indices"
                 got = gf.ext_to_pairs(dt.get_and_append_challenges(label, k))
                 want = [ht.get_and_append_challenge(label) for _ in range(k)]
-            else:
+            elif kind == 5:
                 labels = (b"logup_batching", b"logup_alpha", b"logup_lambda")
                 got = gf.ext_to_pairs(dt.step(labels=tuple(label_chunks(lbl) for lbl in labels), k=len(labels)))
                 want = [ht.get_and_append_challenge(lbl) for lbl in labels]
+            elif rng.integers(0, 2):  # past the kernel's 32-word batches of the array
+                long_arrays += 1
+                vals = rng.integers(0, P, size=int(rng.integers(32, 100)), dtype=np.uint64)
+                dt.append_base(gf.from_u64(vals, "cuda"))
+                ht.append_field_elements(vals)
+            else:
+                long_arrays += 1
+                pairs = [tuple(int(v) for v in rng.integers(0, P, size=2, dtype=np.uint64))
+                         for _ in range(int(rng.integers(16, 50)))]
+                dt.append_exts(gf.ext_from_pairs(pairs, "cuda"))
+                ht.append_field_element_exts(pairs)
             if want is not None:
                 challenges += len(want)
                 mismatches += sum(g != w for g, w in zip(got, want))
@@ -374,7 +413,7 @@ def check_sponge(seed: int = 5, scripts: int = 8, ops: int = 40) -> dict:
         perm_mismatches += int((st[:8] != want).sum())
         g, w = gf.to_u64(st[:8]).tolist(), gf.to_u64(want).tolist()
         max_err = max([max_err] + [abs(a - b) for a, b in zip(g, w)])
-    return {"sponge_challenges": challenges, "sponge_mismatches": mismatches,
+    return {"sponge_challenges": challenges, "sponge_mismatches": mismatches, "arrays_past_32_words": long_arrays,
             "permutation_states": len(states), "permutation_mismatches": perm_mismatches,
             "max_abs_err": max_err}
 
@@ -431,17 +470,21 @@ def mul_latency_ns(iters: int = 1 << 20) -> float:
 
 
 def sumcheck_cases() -> dict:
-    """Main-path sumcheck shapes: name -> (num_vars, rows, products, degree).
+    """Main-path sumcheck shapes: name -> (num_vars, rows, products, degree),
+    then the kernels' edge shapes (tests/torch_reference.py
+    SUMCHECK_EDGE_CASES, each with its tail start or None).
     A logup level of the LeNet's widest (2^13-entry) lookup column: its top
     level, a lookup's input layer over 8 instances (eq, then d_hi, d_lo an
     instance; two products of degree 2 padded with ones); a generic logup
     level of 39 instances, Dense-4M's widest (eq, then n_lo, d_hi, n_hi,
-    d_lo an instance: 157 rows, 117 products), at 12 variables so that two
-    rounds run above the tail; the batch opening of Dense-4M: 63 claims at
-    2^20 entries, eq and poly rows a claim; the maxpool zerocheck (degree 5)
-    of the LeNet's first pool, and the same at 12 variables, whose second
-    round folds above the tail. Each path's stacked sumcheck with the most
+    d_lo an instance: 157 rows, 117 products), at 12 variables with the
+    tail from 10, so that two rounds run above it; the batch opening of
+    Dense-4M: 63 claims at 2^20 entries, eq and poly rows a claim; the
+    maxpool zerocheck (degree 5) of the LeNet's first pool, and the same at
+    12 variables with the tail from 10, whose second round folds above it. Each path's stacked sumcheck with the most
     rows is checked besides, at the shape the path gave it (`drive`)."""
+    import torch_reference as R
+
     inst = 8
     logup = [p for i in range(inst) for p in ([0, 1 + 2 * i], [0, 2 + 2 * i], [0, 2 + 2 * i, 1 + 2 * i])]
     wide = 39
@@ -449,10 +492,11 @@ def sumcheck_cases() -> dict:
     maxpool = [[0, 1, 2, 3, 4]] + [[k, 4] for k in range(4)] + [[5, 6]]
     return {
         "logup_level_2^13": (12, 1 + 2 * inst, logup, 3),
-        "logup_level_39_instances": (12, 1 + 4 * wide, generic, 3),
+        "logup_level_39_instances": (12, 1 + 4 * wide, generic, 3, 10),
         "batch_open_2^20": (20, 126, [[2 * c, 2 * c + 1] for c in range(63)], 2),
         "maxpool_zerocheck": (11, 7, maxpool, 5),
-        "maxpool_zerocheck_2^12": (12, 7, maxpool, 5),
+        "maxpool_zerocheck_2^12": (12, 7, maxpool, 5, 10),
+        **R.SUMCHECK_EDGE_CASES,
     }
 
 
@@ -479,18 +523,25 @@ def check_sumcheck(cases=None) -> dict:
     version, the per-round prover (the same rounds in torch on the card,
     the sponge on a CPU state), at the main path's shapes (`cases`, by
     default `sumcheck_cases()`): messages, challenges, final evaluations
-    and the sponge state, bit for bit."""
+    and the sponge state, bit for bit. A case's fifth entry, when given and
+    not None, is the tail start (fused.TAIL_LOG) it runs at."""
     from deepprove_tpu_torch.sumcheck import fused, prover
     from deepprove_tpu_torch.transcript import BasicTranscript
     from deepprove_tpu_torch.transcript.session import DeviceTranscript
 
     per_case, mismatches, max_err = {}, 0, 0
-    for i, (name, (n, rows, products, degree)) in enumerate((cases or sumcheck_cases()).items()):
+    default_tail = fused.TAIL_LOG
+    for i, (name, (n, rows, products, degree, *tail)) in enumerate((cases or sumcheck_cases()).items()):
         vp = random_vp(n, rows, products, 100 + i, "cuda")
         ht = BasicTranscript(b"sumcheck %d" % i)
         dt = DeviceTranscript.from_host(ht, "cuda")
         dt_plain = DeviceTranscript.from_host(ht, "cpu")
-        out = fused.prove_device(vp, dt)
+        tail_log = tail[0] if tail and tail[0] is not None else default_tail
+        fused.TAIL_LOG = tail_log
+        try:
+            out = fused.prove_device(vp, dt)
+        finally:
+            fused.TAIL_LOG = default_tail
         plain = prover.prove_device(vp, dt_plain)
         msgs, chals, finals = plain.proof.round_messages, plain.proof.point, plain.final_evals
         pairs = [(out.proof.round_messages, msgs), (out.proof.point, chals), (out.final_evals, finals)]
@@ -503,7 +554,7 @@ def check_sumcheck(cases=None) -> dict:
                     max_err = max(max_err, int((g.cpu()[diff] - w.cpu()[diff]).abs().max()))
         bad += int((dt.state.cpu() != dt_plain.state).sum())
         per_case[name] = {"num_vars": n, "rows": rows, "products": len(products), "degree": degree,
-                          "mismatches": bad}
+                          "tail_log": tail_log, "mismatches": bad}
         mismatches += bad
         del vp, out, plain, msgs, chals, finals
     return {"cases": per_case, "mismatches": mismatches, "max_abs_err": max_err}
@@ -512,7 +563,9 @@ def check_sumcheck(cases=None) -> dict:
 def time_sumcheck(mul_ns: float) -> dict:
     """Each sumcheck kernel's device time at the batch opening's shape (the
     round kernel's second round, which folds), its plain version's, and its
-    bound."""
+    bound. The tail is timed at TIMED_TAIL_ROUNDS rounds (the shape the
+    kernel table has kept since the tail's first port) and, when the
+    default tail start differs, at fused.TAIL_LOG rounds too."""
     from deepprove_tpu_torch.fields import gf
     from deepprove_tpu_torch.sumcheck import VirtualPolynomial, fused, prover
     from deepprove_tpu_torch.transcript import BasicTranscript
@@ -535,14 +588,6 @@ def time_sumcheck(mul_ns: float) -> dict:
                               partials, degree)
     finish_ms = device_ms(lambda: fused.finish_cuda(partials, blocks, 1, n, msgs, chals, dt.state, degree), 50,
                           "finish_kernel")
-    tail_len = 1 << (fused.TAIL_LOG + 1)
-    t0, t1 = s0[:, :tail_len].contiguous(), s1[:, :tail_len].contiguous()
-    finals = torch.empty((2, m), dtype=torch.int64, device="cuda")
-    tail_rnd0 = n - fused.TAIL_LOG
-    # the work does not depend on the values, so the tail runs again on what it left
-    tail_ms = device_ms(lambda: fused.tail_cuda((t0, t1), (half[0], half[1]), m, tail_len, tail_rnd0, n,
-                                                fidx, coeffs, msgs, chals, dt.state, finals, degree), 10,
-                        "tail_kernel")
     # plain versions on the same shapes: torch on the card, the sponge on the CPU
     stacked = gf.GF2(s0, s1)
     idx = prover._factor_index(vp, degree, "cuda")
@@ -553,34 +598,55 @@ def time_sumcheck(mul_ns: float) -> dict:
     plain_finish_ms, _ = wall_ms(lambda: [dt_cpu.step(arr=msg, labels=(prover.ROUND_CHUNKS,), k=1)
                                           for _ in range(50)])
     plain_finish_ms /= 50
-
-    def plain_tail():
-        """The tail's work by the per-round prover: the first fold, then
-        TAIL_LOG rounds (its absorb of [n, degree] one sponge call more)."""
-        tail_vp = VirtualPolynomial.new(fused.TAIL_LOG)
-        tail_vp.add_mle_rows(prover._fold_rows(gf.GF2(t0, t1), r))
-        for f in products:
-            tail_vp.add_product(None, f)
-        tail_vp.coeffs_dev = coeffs
-        return prover.prove_device(tail_vp, dt_cpu)
-
-    plain_tail_ms, _ = wall_ms(plain_tail)
     # bounds: the round kernel moves its rows (16 bytes an element) once in
     # and their halves once out; a finish is one sponge call of 2(D + 1) + 2
-    # absorbs and a squeeze of 2 words from a state with no pending input;
-    # the tail is TAIL_LOG such calls in sequence
+    # absorbs and a squeeze of 2 words from a state with no pending input
     round_bytes = m * length * 16 * 1.5
     perms = sponge_permutations(2 * (degree + 1) + len(prover.ROUND_CHUNKS), 2)
     finish_bound = perms * 112 * mul_ns * 1e-6
+    finals = torch.empty((2, m), dtype=torch.int64, device="cuda")
+
+    def time_tail(rounds: int) -> dict:
+        """The tail's last `rounds` rounds (folding first) against the
+        per-round prover; the bound: the larger of its rows' bytes (read
+        once; the evaluations written once) and its `rounds` sponge calls in
+        sequence, each a chain of dependent multiplies."""
+        tail_len = 1 << (rounds + 1)
+        t0, t1 = s0[:, :tail_len].contiguous(), s1[:, :tail_len].contiguous()
+        # the work does not depend on the values, so the tail runs again on what it left
+        tail_ms = device_ms(lambda: fused.tail_cuda((t0, t1), (half[0], half[1]), m, tail_len, n - rounds, n,
+                                                    fidx, coeffs, msgs, chals, dt.state, finals, degree), 10,
+                            "tail_kernel")
+
+        def plain_tail():
+            """The tail's work by the per-round prover: the first fold, then
+            `rounds` rounds (its absorb of [n, degree] one sponge call more)."""
+            tail_vp = VirtualPolynomial.new(rounds)
+            tail_vp.add_mle_rows(prover._fold_rows(gf.GF2(t0, t1), r))
+            for f in products:
+                tail_vp.add_product(None, f)
+            tail_vp.coeffs_dev = coeffs
+            return prover.prove_device(tail_vp, dt_cpu)
+
+        plain_ms, _ = wall_ms(plain_tail)
+        bytes_ms = (m * tail_len + m) * 16 / HBM_BYTES_PER_S * 1e3
+        ops_ms = rounds * finish_bound
+        return {"kernel_ms": tail_ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "bound_ops_ms": ops_ms,
+                "bound_bytes_ms": bytes_ms, "rounds": rounds, "row_length": tail_len,
+                "grid": fused.tail_config(degree)}
+
+    tail = time_tail(TIMED_TAIL_ROUNDS)
+    extra = {}
+    if fused.TAIL_LOG != TIMED_TAIL_ROUNDS:
+        extra["tail_at_default"] = time_tail(fused.TAIL_LOG)
     return {
         "timed_shape": {"num_vars": n, "rows": m, "products": len(products), "degree": degree},
         "round": {"kernel_ms": round_ms, "plain_ms": plain_round_ms,
                   "bound_ms": round_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"},
         "finish": {"kernel_ms": finish_ms, "plain_ms": plain_finish_ms, "bound_ms": finish_bound,
                    "bound_by": "operations", "blocks": blocks, "permutations": perms},
-        "tail": {"kernel_ms": tail_ms, "plain_ms": plain_tail_ms,
-                 "bound_ms": fused.TAIL_LOG * finish_bound, "bound_by": "operations",
-                 "rounds": fused.TAIL_LOG, "row_length": tail_len},
+        "tail": tail, **extra,
     }
 
 
@@ -882,6 +948,8 @@ def main() -> int:
     sc_err = max([k["sumcheck"]["max_abs_err"]]
                  + [p["largest_sumcheck"].get("max_abs_err", 0) for p in paths])
     sc, sp = {**times, "max_abs_err": sc_err}, times["sponge"]
+    res, mul = stats["sponge_kernels"], {"mul_latency_ns": times["mul_latency_ns"]}
+    tail = sc["tail"]
     rows = [
         ("poseidon2_compress_level", "poseidon2_compress.cu", "deepprove_tpu/hashing/poseidon2_pallas.py:142",
          {"kernel_ms": k["kernel_ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
@@ -889,10 +957,16 @@ def main() -> int:
          k["max_abs_err"], {"sass_instructions": stats["sass_instructions"],
                             "resident_warps_per_sm": stats["resident_warps_per_sm"]}),
         ("sponge", "transcript.cu", "deepprove_tpu/transcript/device.py:60",
-         {**sp, "bound_by": "operations"}, k["sponge"]["max_abs_err"], {}),
+         {**sp, "bound_by": "operations"}, k["sponge"]["max_abs_err"],
+         {**res["sponge_kernel"], **mul, "permutations": sp["permutations"]}),
         ("sumcheck_round", "sumcheck.cu", "deepprove_tpu/sumcheck/fused.py:164", sc["round"], sc["max_abs_err"], {}),
-        ("sumcheck_finish", "sumcheck.cu", "deepprove_tpu/sumcheck/fused.py:164", sc["finish"], sc["max_abs_err"], {}),
-        ("sumcheck_tail", "sumcheck.cu", "deepprove_tpu/sumcheck/fused.py:64", sc["tail"], sc["max_abs_err"], {}),
+        ("sumcheck_finish", "sumcheck.cu", "deepprove_tpu/sumcheck/fused.py:164", sc["finish"], sc["max_abs_err"],
+         {**res["finish_kernel"], **mul}),
+        ("sumcheck_tail", "sumcheck.cu", "deepprove_tpu/sumcheck/fused.py:64", tail, sc["max_abs_err"],
+         {**res["tail_kernel"], **mul, "grid_blocks": tail["grid"]["blocks"],
+          "threads_per_block": tail["grid"]["threads"], "rounds": tail["rounds"],
+          "row_length": tail["row_length"], "bound_ops_ms": tail["bound_ops_ms"],
+          "bound_bytes_ms": tail["bound_bytes_ms"]}),
     ]
     emit({"kernels": [{
         "name": name,

@@ -18,11 +18,11 @@
 //                 folded pairs back, and writes the block's partial message
 //                 to scratch;
 //   finish_kernel one block: sums the partials, writes the message, runs the
-//                 sponge (transcript.cuh) and writes the challenge where the
-//                 next round_kernel reads it;
-//   tail_kernel   one block: every remaining round once the rows are short,
-//                 fold, message, sponge, with __syncthreads between steps,
-//                 then the last fold into the final evaluations.
+//                 sponge (transcript.cuh, one warp) and writes the challenge
+//                 where the next round_kernel reads it;
+//   tail_kernel   one cooperative launch over the whole card: every
+//                 remaining round once the rows are short, then the last
+//                 fold into the final evaluations.
 // So a sumcheck of n variables is 2 launches a round above the tail and one
 // for the tail (sumcheck/fused.py picks the split).
 //
@@ -30,23 +30,39 @@
 // writes their halves once, and does 3 multiplies a fold and about D (D + 1)
 // extension multiplies a product a pair: at the main path's degrees (2 and
 // 3) the device memory, at degree 5 with few rows the multiplies. The
-// finish and tail kernels are latency: the sponge is one thread running
-// dependent permutations (transcript.cuh), and a tail round is a block's pass
-// over at most 2^(TAIL_LOG + 1) entries a row. The design keeps every round's
-// data and challenge on the device, so that no launch waits on the host.
+// finish and tail kernels are latency: every round's challenge is a chain
+// of dependent permutations that the next round's fold waits on. The tail
+// spreads each round's work over every SM so that a round's pass costs
+// little beside its sponge call:
+//   - the fold takes one thread a (row, output entry) and the message one
+//     thread a (product, pair), so no thread walks all rows or products;
+//   - the rows stay in device memory, read and written at L2: a product
+//     reads rows that other blocks folded, and L2 holds them from the
+//     tail's second round on (the batch opening's 126 rows of 2^14 after
+//     its first fold are 33 MB against 50 MB);
+//   - the blocks write their partial messages to scratch; block 0 sums them
+//     and its first warp runs the sponge and writes the challenge; three
+//     grid barriers a round order the fold, the partials and the challenge.
+// A thread-block cluster of 16 SMs, summing through distributed shared
+// memory, has cheaper barriers (scripts/tail_designs.py times both) but
+// runs the passes on an eighth of the card; it was built first and was
+// slower than the grid (PERF.md). A grid the card cannot hold is an
+// error, with no other route.
 //
 // Arithmetic is canonical (every value below p), so messages, challenges and
 // evaluations equal the plain torch version bit for bit.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "transcript.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int MAX_DEGREE = 5;
 constexpr int ROUND_THREADS = 256;  // round_kernel and finish_kernel blocks
-constexpr int TAIL_THREADS = 512;  // the tail's one block: at most 128 registers a thread
 constexpr u64 P = gl::P;
 
 struct ext {
@@ -69,22 +85,83 @@ __device__ __forceinline__ ext eadd(ext a, ext b) { return {fadd(a.a0, b.a0), fa
 
 __device__ __forceinline__ ext esub(ext a, ext b) { return {fsub(a.a0, b.a0), fsub(a.a1, b.a1)}; }
 
+// 7 t1 + t0 below p: 7 t1 < 2^67, so the sum is a wide value folded once.
+__device__ __forceinline__ u64 mul7_add(u64 t1, u64 t0) {
+    const gl::wide w = {t1 * 7, (u32)__umul64hi(t1, 7)};
+    return gl::canonical(gl::fold(gl::wadd(w, t0)));
+}
+
 // Karatsuba over X^2 = 7, as fields/gf.py `ext_mul`.
 __device__ __forceinline__ ext emul(ext a, ext b) {
     u64 t0 = fmul(a.a0, b.a0);
     u64 t1 = fmul(a.a1, b.a1);
     u64 t2 = fmul(fadd(a.a0, a.a1), fadd(b.a0, b.a1));
-    return {gl::canonical(gl::mul_add(t1, 7, t0)), fsub(fsub(t2, t0), t1)};
+    return {mul7_add(t1, t0), fsub(fsub(t2, t0), t1)};
 }
 
 __device__ __forceinline__ ext load(const u64* p0, const u64* p1, long long i) {
     return {p0[i], p1[i]};
 }
 
-// One pair j of one round, added into sums[0..D]. Rows of the source are
-// L long. With `fold`, entries 4j..4j+3 of each row fold by r into entries
-// 2j, 2j+1 of the destination (rows L / 2 long), and the pair is read back
-// from there; else the pair is entries 2j, 2j+1 of the source.
+// Rows that other SMs wrote in this launch: read and written at L2, past
+// the SM's own L1.
+__device__ __forceinline__ u64 ld_l2(const u64* p) {
+    return __ldcg(reinterpret_cast<const unsigned long long*>(p));
+}
+
+__device__ __forceinline__ ext load_l2(const u64* p0, const u64* p1, long long i) {
+    return {ld_l2(p0 + i), ld_l2(p1 + i)};
+}
+
+__device__ __forceinline__ void store_l2(u64* p0, u64* p1, long long i, ext v) {
+    __stcg(reinterpret_cast<unsigned long long*>(p0 + i), (unsigned long long)v.a0);
+    __stcg(reinterpret_cast<unsigned long long*>(p1 + i), (unsigned long long)v.a1);
+}
+
+// lo + r (hi - lo)
+__device__ __forceinline__ ext fold_pair(ext lo, ext hi, ext r) { return eadd(lo, emul(r, esub(hi, lo))); }
+
+// Product p at pair j (entries 2j, 2j + 1 of rows ld long) at t = 0..D,
+// times its coefficient, added into sums[0..D]. The coefficient is one more
+// factor, the same at every t. The tail (TAIL) reads its rows at L2.
+template <int D, bool TAIL>
+__device__ __forceinline__ void add_product(int p, long long j, const u64* v0, const u64* v1,
+                                            long long ld, const int* fidx, const u64* c0,
+                                            const u64* c1, ext* sums) {
+    ext acc[D + 1];
+    bool any = false;
+#pragma unroll
+    for (int f = 0; f <= D; f++) {
+        ext lo, hi;
+        if (f < D) {
+            const int row = fidx[p * D + f];
+            if (row < 0) continue;  // the constant 1
+            const long long o = (long long)row * ld + 2 * j;
+            lo = TAIL ? load_l2(v0, v1, o) : load(v0, v1, o);
+            hi = TAIL ? load_l2(v0, v1, o + 1) : load(v0, v1, o + 1);
+        } else {
+            lo = hi = load(c0, c1, p);
+        }
+        const ext diff = esub(hi, lo);
+        ext v = lo;
+#pragma unroll
+        for (int t = 0; t <= D; t++) {
+            if (t == 1) v = hi;
+            else if (t >= 2) v = eadd(v, diff);
+            if (any) acc[t] = emul(acc[t], v);
+            else acc[t] = v;
+        }
+        any = true;
+    }
+#pragma unroll
+    for (int t = 0; t <= D; t++) sums[t] = eadd(sums[t], acc[t]);
+}
+
+// One pair j of one round of round_kernel, added into sums[0..D]. Rows of
+// the source are L long. With `fold`, entries 4j..4j+3 of each row fold by
+// r into entries 2j, 2j+1 of the destination (rows L / 2 long), and the
+// pair is read back from there; else the pair is entries 2j, 2j+1 of the
+// source.
 template <int D>
 __device__ __forceinline__ void round_pass(long long j, bool fold, const u64* s0, const u64* s1,
                                            u64* d0, u64* d1, int m, long long L, ext r,
@@ -96,10 +173,8 @@ __device__ __forceinline__ void round_pass(long long j, bool fold, const u64* s0
         const long long half = L >> 1;
         for (int i = 0; i < m; i++) {
             const long long s = (long long)i * L + 4 * j;
-            ext x0 = load(s0, s1, s), x1 = load(s0, s1, s + 1);
-            ext x2 = load(s0, s1, s + 2), x3 = load(s0, s1, s + 3);
-            ext lo = eadd(x0, emul(r, esub(x1, x0)));
-            ext hi = eadd(x2, emul(r, esub(x3, x2)));
+            const ext lo = fold_pair(load(s0, s1, s), load(s0, s1, s + 1), r);
+            const ext hi = fold_pair(load(s0, s1, s + 2), load(s0, s1, s + 3), r);
             const long long d = (long long)i * half + 2 * j;
             d0[d] = lo.a0;
             d1[d] = lo.a1;
@@ -110,38 +185,13 @@ __device__ __forceinline__ void round_pass(long long j, bool fold, const u64* s0
         v1 = d1;
         ld = half;
     }
-    for (int p = 0; p < np; p++) {
-        ext acc[D + 1];
-        bool any = false;
-#pragma unroll
-        for (int f = 0; f < D; f++) {
-            const int row = fidx[p * D + f];
-            if (row < 0) continue;  // the constant 1
-            const long long o = (long long)row * ld + 2 * j;
-            ext lo = load(v0, v1, o), hi = load(v0, v1, o + 1);
-            ext diff = esub(hi, lo);
-            ext v = lo;
-#pragma unroll
-            for (int t = 0; t <= D; t++) {
-                if (t == 1) v = hi;
-                else if (t >= 2) v = eadd(v, diff);
-                if (any) acc[t] = emul(acc[t], v);
-                else acc[t] = v;
-            }
-            any = true;
-        }
-        if (!any) {
-#pragma unroll
-            for (int t = 0; t <= D; t++) acc[t] = {1, 0};
-        }
-        const ext c = load(c0, c1, p);
-#pragma unroll
-        for (int t = 0; t <= D; t++) sums[t] = eadd(sums[t], emul(c, acc[t]));
-    }
+    for (int p = 0; p < np; p++) add_product<D, false>(p, j, v0, v1, ld, fidx, c0, c1, sums);
 }
 
-// The block's sums into total[0..2(D + 1)) (t-major, a0 then a1); every
-// thread of the block takes part. red holds (blockDim / 32) * 2(D + 1) words.
+// The block's sums into total[0..V), V = 2(D + 1) words (t-major, a0 then
+// a1); every thread of the block takes part. round_kernel and
+// finish_kernel: shuffles within each warp, then V threads add the warps'
+// sums (red: V words a warp).
 template <int D>
 __device__ __forceinline__ void block_sum(const ext* sums, u64* red, u64* total) {
     constexpr int V = 2 * (D + 1);
@@ -168,29 +218,56 @@ __device__ __forceinline__ void block_sum(const ext* sums, u64* red, u64* total)
     __syncthreads();
 }
 
-// One thread: write message `rnd` (total, t-major) into msgs (2, n, D + 1),
-// absorb it and the round label, squeeze the challenge into chals (2, n).
+// The same sum for the tail, by columns: each thread writes its V words
+// into column form in cols (V * blockDim words), then warp k sums word k
+// (and k + warps, ...) and reduces it by shuffles: a short stretch of
+// code, which the tail reads afresh every round.
 template <int D>
-__device__ ext absorb_and_squeeze(const u64* total, int rnd, int n, u64* msgs, u64* chals,
-                                  u64* state) {
-    sponge::State st;
-    sponge::load(st, state);
-    const long long plane = (long long)n * (D + 1);
+__device__ __forceinline__ void block_sum_cols(const ext* sums, u64* cols, u64* total) {
+    constexpr int V = 2 * (D + 1);
+    const int n = blockDim.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
     for (int t = 0; t <= D; t++) {
-        const u64 a0 = total[2 * t], a1 = total[2 * t + 1];
-        msgs[rnd * (D + 1) + t] = a0;
-        msgs[plane + rnd * (D + 1) + t] = a1;
-        sponge::observe(st, a0);
-        sponge::observe(st, a1);
+        cols[(2 * t) * n + threadIdx.x] = sums[t].a0;
+        cols[(2 * t + 1) * n + threadIdx.x] = sums[t].a1;
     }
-    sponge::observe(st, sponge::ROUND_LABEL_0);
-    sponge::observe(st, sponge::ROUND_LABEL_1);
-    const u64 a0 = sponge::sample(st);
-    const u64 a1 = sponge::sample(st);
-    chals[rnd] = a0;
-    chals[n + rnd] = a1;
-    sponge::store(st, state);
-    return {a0, a1};
+    __syncthreads();
+    for (int k = warp; k < V; k += n >> 5) {
+        u64 s = 0;
+        for (int i = lane; i < n; i += 32) s = fadd(s, cols[k * n + i]);
+#pragma unroll
+        for (int off = 16; off; off >>= 1)
+            s = fadd(s, (u64)__shfl_down_sync(0xffffffffu, (unsigned long long)s, off));
+        if (lane == 0) total[k] = s;
+    }
+    __syncthreads();
+}
+
+// One warp, lane k < 2(D + 1) holding word k of message `rnd` (t-major, a0
+// then a1): write the message into msgs (2, n, D + 1), absorb it and the
+// round label, squeeze the challenge into chals (2, n); the challenge is
+// returned in every lane.
+template <int D>
+__device__ __forceinline__ ext absorb_and_squeeze(sponge::State& st, u64 word, int rnd, int n,
+                                                  u64* msgs, u64* chals) {
+    constexpr int V = 2 * (D + 1);
+    const int lane = threadIdx.x & 31;
+    if (lane < V) msgs[(long long)(lane & 1) * n * (D + 1) + rnd * (D + 1) + (lane >> 1)] = word;
+    const u64 mine = lane < V ? word : lane == V ? sponge::ROUND_LABEL_0 : sponge::ROUND_LABEL_1;
+    // the V + 2 absorbs and the 2 squeezes through one step site: one
+    // inlined permutation
+    ext c;
+#pragma unroll 1
+    for (int w = 0; w < V + 4; w++) {
+        const u64 out = sponge::step(st, sponge::shfl(mine, w < V + 2 ? w : 0), w >= V + 2);
+        if (w == V + 2) c.a0 = out;
+        if (w == V + 3) c.a1 = out;
+    }
+    if (lane == 0) {
+        chals[rnd] = c.a0;
+        chals[n + rnd] = c.a1;
+    }
+    return c;
 }
 
 template <int D>
@@ -222,6 +299,8 @@ finish_kernel(const u64* __restrict__ partials, long long nblocks, int rnd, int 
     constexpr int V = 2 * (D + 1);
     __shared__ u64 red[(ROUND_THREADS / 32) * V];
     __shared__ u64 total[V];
+    sponge::State st;
+    if (threadIdx.x < 32) sponge::load(st, state);  // in flight during the sum
     ext sums[D + 1];
 #pragma unroll
     for (int t = 0; t <= D; t++) sums[t] = {0, 0};
@@ -231,64 +310,211 @@ finish_kernel(const u64* __restrict__ partials, long long nblocks, int rnd, int 
             sums[t] = eadd(sums[t], load(partials + 2 * t, partials + 2 * t + 1, b * V));
     }
     block_sum<D>(sums, red, total);
-    if (threadIdx.x == 0) absorb_and_squeeze<D>(total, rnd, n, msgs, chals, state);
+    if (threadIdx.x < 32) {
+        absorb_and_squeeze<D>(st, threadIdx.x < V ? total[threadIdx.x] : 0, rnd, n, msgs, chals);
+        sponge::store(st, state);
+    }
 }
 
-// Rounds rnd0..n-1 on rows of length L in buffer x (folding first by
-// challenge rnd0 - 1 when rnd0 > 0), ping-ponging with buffer y (rows of at
-// least L / 2); then the last fold into finals (2, m). No pointer is
-// restrict or read through the read-only path: both buffers are written
-// and read again inside the launch.
-template <int D>
-__global__ void __launch_bounds__(TAIL_THREADS)
-tail_kernel(u64* x0, u64* x1, u64* y0, u64* y1, int m, long long L, int rnd0, int n,
-            const int* fidx, int np, const u64* c0, const u64* c1, u64* msgs, u64* chals,
-            u64* state, u64* finals) {
-    constexpr int V = 2 * (D + 1);
-    __shared__ u64 red[(TAIL_THREADS / 32) * V];
-    __shared__ u64 total[V];
-    __shared__ u64 rs[2];
-    bool fold = rnd0 > 0;
-    if (threadIdx.x == 0 && fold) {
-        rs[0] = chals[rnd0 - 1];
-        rs[1] = chals[n + rnd0 - 1];
-    }
-    __syncthreads();
-    long long len = L;
-    for (int rnd = rnd0; rnd < n; rnd++) {
-        const ext r = {rs[0], rs[1]};
-        const long long count = fold ? len / 4 : len / 2;
-        ext sums[D + 1];
+// The tail's rounds, each over the grid's threads (thread tid of nth).
+
+// Rows of 2^(lg_half + 1) in x fold by r into rows of 2^lg_half in y: one
+// thread an output entry e = (row, q). A thread loads FOLD_BATCH entries'
+// pairs before it folds any, so that their loads are in flight together.
+constexpr int FOLD_BATCH = 2;
+
+__device__ __forceinline__ void fold_rows(const u64* x0, const u64* x1, u64* y0, u64* y1, int m,
+                                          int lg_half, ext r, long long tid, long long nth) {
+    const long long half = 1LL << lg_half, count = (long long)m << lg_half;
+    for (long long e0 = tid; e0 < count; e0 += FOLD_BATCH * nth) {
+        ext lo[FOLD_BATCH], hi[FOLD_BATCH];
 #pragma unroll
-        for (int t = 0; t <= D; t++) sums[t] = {0, 0};
-        for (long long j = threadIdx.x; j < count; j += TAIL_THREADS)
-            round_pass<D>(j, fold, x0, x1, y0, y1, m, len, r, fidx, np, c0, c1, sums);
-        block_sum<D>(sums, red, total);
-        if (threadIdx.x == 0) {
-            const ext nr = absorb_and_squeeze<D>(total, rnd, n, msgs, chals, state);
-            rs[0] = nr.a0;
-            rs[1] = nr.a1;
+        for (int k = 0; k < FOLD_BATCH; k++) {
+            const long long e = e0 + k * nth;
+            if (e < count) {
+                const long long s = ((e >> lg_half) << (lg_half + 1)) + 2 * (e & (half - 1));
+                lo[k] = load_l2(x0, x1, s);
+                hi[k] = load_l2(x0, x1, s + 1);
+            }
         }
+#pragma unroll
+        for (int k = 0; k < FOLD_BATCH; k++) {
+            const long long e = e0 + k * nth;
+            if (e < count) store_l2(y0, y1, e, fold_pair(lo[k], hi[k], r));
+        }
+    }
+}
+
+// The message's terms over rows of 2^(lg_pairs + 1) in v: one thread a
+// (product, pair), added into the thread's sums.
+template <int D>
+__device__ __forceinline__ void message_terms(const u64* v0, const u64* v1, int lg_pairs,
+                                              const int* fidx, int np, const u64* c0,
+                                              const u64* c1, long long tid, long long nth,
+                                              ext* sums) {
+    const long long pairs = 1LL << lg_pairs, count = (long long)np << lg_pairs;
+    for (long long e = tid; e < count; e += nth)
+        add_product<D, true>((int)(e >> lg_pairs), e & (pairs - 1), v0, v1, 2 * pairs, fidx, c0,
+                             c1, sums);
+}
+
+// The products' factor indices and coefficients of the tail, in shared
+// memory when they fit in STAGE_BYTES (every main-path sumcheck: at most
+// 117 products), else read where they are: they are read every round, and
+// the barriers' acquire empties the L1 each time.
+constexpr int STAGE_BYTES = 8192;
+
+struct Products {
+    const int* fidx;
+    const u64 *c0, *c1;
+};
+
+template <int D>
+__device__ __forceinline__ Products stage_products(const int* fidx, int np, const u64* c0,
+                                                     const u64* c1, unsigned char* stage) {
+    if ((long long)np * (4 * D + 16) > STAGE_BYTES) return {fidx, c0, c1};
+    u64* s0 = reinterpret_cast<u64*>(stage);
+    u64* s1 = s0 + np;
+    int* sf = reinterpret_cast<int*>(s1 + np);
+    for (int i = threadIdx.x; i < np * D; i += blockDim.x) sf[i] = fidx[i];
+    for (int i = threadIdx.x; i < np; i += blockDim.x) {
+        s0[i] = c0[i];
+        s1[i] = c1[i];
+    }
+    return {sf, s0, s1};  // visible to the block after its next barrier
+}
+
+// A tail block's threads at degree D: 512 up to degree 3, 256 above, where
+// a thread of the message pass holds more sums and factors than 128
+// registers (the most at 512 threads an SM) keep without a stack.
+template <int D>
+__host__ __device__ constexpr int tail_threads() {
+    return D <= 3 ? 512 : 256;
+}
+
+// Rounds rnd0..n-1 on rows of length L = 2^lg in buffer x (folding first by
+// challenge rnd0 - 1 when rnd0 > 0), ping-ponging with buffer y (rows of at
+// least L / 2); then the last fold into finals (2, m). One cooperative
+// launch: every block of the card takes part in every round, and three
+// grid barriers a round order the fold, the partial messages (in scratch:
+// a row of V words a block, then the challenge's 2 words) and the
+// challenge. The row buffers are neither restrict nor read through the
+// read-only path: both are written and read again inside the launch, by
+// other SMs.
+template <int D>
+__global__ void __launch_bounds__(tail_threads<D>(), 1)
+tail_kernel(u64* x0, u64* x1, u64* y0, u64* y1, int m, int lg, int rnd0, int n,
+            const int* __restrict__ fidx, int np, const u64* __restrict__ c0,
+            const u64* __restrict__ c1, u64* msgs, u64* chals, u64* state, u64* finals,
+            u64* scratch) {
+    constexpr int V = 2 * (D + 1), THREADS = tail_threads<D>();
+    __shared__ u64 cols[V * THREADS];
+    __shared__ u64 total[V];
+    __shared__ u64 home[sponge::STATE_WORDS];  // block 0's: the sponge state between rounds
+    __shared__ __align__(16) unsigned char stage[STAGE_BYTES];
+    const Products prod = stage_products<D>(fidx, np, c0, c1, stage);
+    cg::grid_group grid = cg::this_grid();
+    const long long tid = (long long)blockIdx.x * THREADS + threadIdx.x;
+    const long long nth = (long long)gridDim.x * THREADS;
+    const bool leader = blockIdx.x == 0 && threadIdx.x < 32;  // the warp that runs the sponge
+    u64* partials = scratch;
+    u64* rg = scratch + (long long)gridDim.x * V;
+    // the state is in registers while a round's call runs and in shared
+    // memory between calls, so that the passes keep every register
+    const u64* from = state;
+    bool fold = rnd0 > 0;
+    ext r = fold ? ext{chals[rnd0 - 1], chals[n + rnd0 - 1]} : ext{0, 0};
+    __syncthreads();  // the staged products
+    for (int rnd = rnd0; rnd < n; rnd++) {
         if (fold) {
+            fold_rows(x0, x1, y0, y1, m, lg - 1, r, tid, nth);
             u64* t0 = x0;
             u64* t1 = x1;
             x0 = y0;
             x1 = y1;
             y0 = t0;
             y1 = t1;
-            len >>= 1;
+            lg--;
+            grid.sync();  // the folded rows, for every block's products
         }
+        ext sums[D + 1];
+#pragma unroll
+        for (int t = 0; t <= D; t++) sums[t] = {0, 0};
+        message_terms<D>(x0, x1, lg - 1, prod.fidx, np, prod.c0, prod.c1, tid, nth, sums);
+        block_sum_cols<D>(sums, cols, total);
+        if (threadIdx.x < V)
+            __stcg(reinterpret_cast<unsigned long long*>(partials) + (long long)blockIdx.x * V + threadIdx.x,
+                   (unsigned long long)total[threadIdx.x]);
+        grid.sync();  // the partial messages, for block 0
+        if (blockIdx.x == 0) {
+#pragma unroll
+            for (int t = 0; t <= D; t++) sums[t] = {0, 0};
+            for (long long b = threadIdx.x; b < gridDim.x; b += THREADS) {
+#pragma unroll
+                for (int t = 0; t <= D; t++)
+                    sums[t] = eadd(sums[t], load_l2(partials + 2 * t, partials + 2 * t + 1, b * V));
+            }
+            block_sum_cols<D>(sums, cols, total);
+            if (leader) {
+                sponge::State st;
+                sponge::load(st, from);
+                const ext c = absorb_and_squeeze<D>(st, threadIdx.x < V ? total[threadIdx.x] : 0, rnd, n,
+                                                    msgs, chals);
+                sponge::store(st, home);
+                from = home;
+                if (threadIdx.x == 0) store_l2(rg, rg + 1, 0, c);
+            }
+        }
+        grid.sync();  // the challenge, for every block
+        r = load_l2(rg, rg + 1, 0);
         fold = true;
-        __syncthreads();
     }
-    // len == 2: fold the last challenge in
-    const ext r = {rs[0], rs[1]};
-    for (int i = threadIdx.x; i < m; i += TAIL_THREADS) {
-        const ext lo = load(x0, x1, (long long)i * len), hi = load(x0, x1, (long long)i * len + 1);
-        const ext f = eadd(lo, emul(r, esub(hi, lo)));
+    // the rows are 2 long: fold the last challenge in
+    for (long long i = tid; i < m; i += nth) {
+        const ext f = fold_pair(load_l2(x0, x1, 2 * i), load_l2(x0, x1, 2 * i + 1), r);
         finals[i] = f.a0;
         finals[m + i] = f.a1;
     }
+    if (leader && threadIdx.x < sponge::STATE_WORDS) state[threadIdx.x] = home[threadIdx.x];
+}
+
+// The tail's grid at degree D on the current device: every SM, with as
+// many blocks as the occupancy calculator lets a cooperative launch hold
+// (*per_sm). Queried at every call (a few microseconds beside the launch),
+// so each device gets its own grid. An error when none fits.
+template <int D>
+cudaError_t tail_grid(int* blocks, int* per_sm) {
+    int dev = 0, sms = 0, fits = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fits, tail_kernel<D>, tail_threads<D>(), 0);
+    if (err == cudaSuccess && fits * sms < 1) err = cudaErrorInvalidConfiguration;
+    *blocks = err == cudaSuccess ? fits * sms : 0;
+    *per_sm = fits;
+    return err;
+}
+
+template <int D>
+int launch_tail(void* x0, void* x1, void* y0, void* y1, int m, long long L, int rnd0, int n,
+                const void* fidx, int np, const void* c0, const void* c1, void* msgs, void* chals,
+                void* state, void* finals, void* scratch, cudaStream_t stream) {
+    int blocks, per_sm;
+    cudaError_t err = tail_grid<D>(&blocks, &per_sm);
+    if (err != cudaSuccess) return (int)err;
+    if (L < 2 || (L & (L - 1))) return (int)cudaErrorInvalidValue;
+    u64 *ax0 = (u64*)x0, *ax1 = (u64*)x1, *ay0 = (u64*)y0, *ay1 = (u64*)y1;
+    int lg = __builtin_ctzll((unsigned long long)L);
+    const int* afidx = (const int*)fidx;
+    const u64 *ac0 = (const u64*)c0, *ac1 = (const u64*)c1;
+    u64 *amsgs = (u64*)msgs, *achals = (u64*)chals, *astate = (u64*)state, *afinals = (u64*)finals;
+    u64* ascratch = (u64*)scratch;
+    void* args[] = {&ax0, &ax1, &ay0, &ay1, &m, &lg, &rnd0, &n, &afidx, &np, &ac0, &ac1,
+                    &amsgs, &achals, &astate, &afinals, &ascratch};
+    err = cudaLaunchCooperativeKernel((const void*)tail_kernel<D>, dim3(blocks),
+                                      dim3(tail_threads<D>()), args, 0, stream);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -307,6 +533,19 @@ extern "C" int dp_sumcheck_limits(int* max_degree, int* threads) {
     *max_degree = MAX_DEGREE;
     *threads = ROUND_THREADS;
     return 0;
+}
+
+// The tail's launch at `degree`: blocks of its cooperative grid, threads a
+// block, and blocks an SM. Returns the CUDA error that refuses the shape
+// (0 = none).
+extern "C" int dp_sumcheck_tail_config(int degree, int* blocks, int* threads, int* per_sm) {
+    cudaError_t err = cudaErrorInvalidValue;
+#define DP_CONFIG(D)                         \
+    err = tail_grid<D>(blocks, per_sm); \
+    *threads = tail_threads<D>()
+    DP_DISPATCH(degree, DP_CONFIG)
+#undef DP_CONFIG
+    return (int)err;
 }
 
 // One round above the tail. r0/r1 point at the previous challenge (both
@@ -337,15 +576,18 @@ extern "C" int dp_sumcheck_finish(int degree, const void* partials, long long nb
     return (int)cudaGetLastError();
 }
 
+// Rows of L = 2^k in (x0, x1); (y0, y1) room for rows of L / 2; scratch
+// blocks * 2(degree + 1) + 2 words (dp_sumcheck_tail_config's blocks).
+// Launches one cooperative grid; returns the CUDA error of the launch.
 extern "C" int dp_sumcheck_tail(int degree, void* x0, void* x1, void* y0, void* y1, int m,
                                 long long L, int rnd0, int n, const void* fidx, int np,
                                 const void* c0, const void* c1, void* msgs, void* chals,
-                                void* state, void* finals, void* stream) {
-#define DP_TAIL(D)                                                                          \
-    tail_kernel<D><<<1, TAIL_THREADS, 0, (cudaStream_t)stream>>>(                                 \
-        (u64*)x0, (u64*)x1, (u64*)y0, (u64*)y1, m, L, rnd0, n, (const int*)fidx, np,        \
-        (const u64*)c0, (const u64*)c1, (u64*)msgs, (u64*)chals, (u64*)state, (u64*)finals)
+                                void* state, void* finals, void* scratch, void* stream) {
+    int err = (int)cudaErrorInvalidValue;
+#define DP_TAIL(D)                                                                            \
+    err = launch_tail<D>(x0, x1, y0, y1, m, L, rnd0, n, fidx, np, c0, c1, msgs, chals, state, \
+                         finals, scratch, (cudaStream_t)stream)
     DP_DISPATCH(degree, DP_TAIL)
 #undef DP_TAIL
-    return (int)cudaGetLastError();
+    return err;
 }

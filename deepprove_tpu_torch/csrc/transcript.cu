@@ -17,13 +17,14 @@
 //      challenge (n_labels == 1), or label q before challenge q; the
 //      challenges go to out (2, k): the a0 row, then the a1 row.
 //
-// What bounds it: latency. One thread runs the sponge, because every
-// permutation depends on the one before: a permutation is 8 external rounds
-// of 3 dependent multiplies (the S-box) and 22 internal rounds of 4, 112
-// dependent Goldilocks multiplies, each a chain of 32-bit multiply-adds and
-// a reduction. The design keeps the whole call in one launch, reads the
-// array in order with one load per element, and spends nothing on threads
-// that would wait.
+// What bounds it: latency. Every permutation depends on the one before:
+// a permutation is 8 external rounds of 3 dependent multiplies (the S-box)
+// and 22 internal rounds of 4, 112 dependent Goldilocks multiplies, each a
+// chain of 32-bit multiply-adds and a reduction. So one warp runs the call
+// with the state in registers, a word a lane (transcript.cuh), which leaves
+// each round the latency of its multiply chain and a few shuffles; the
+// absorbed array is read 32 words at a time, the next 32 in flight while
+// the current ones are absorbed, so no permutation waits on a load.
 
 #include <cuda_runtime.h>
 
@@ -34,6 +35,7 @@ namespace {
 constexpr int MAX_PRE = 16;
 constexpr int MAX_LABELS = 4;
 constexpr int MAX_LABEL_CHUNKS = 16;
+constexpr int WARP = 32;
 
 struct Script {
     u64 pre[MAX_PRE];
@@ -43,24 +45,41 @@ struct Script {
     int n_labels;
 };
 
-__global__ void __launch_bounds__(1) sponge_kernel(u64* state, Script sc, const u64* a0,
-                                                    const u64* a1, long long n, long long k,
-                                                    u64* out) {
+// Word w of the absorbed array in absorb order (a0[e], then a1[e] when the
+// array is an extension one), 0 past its end.
+__device__ __forceinline__ u64 array_word(const u64* a0, const u64* a1, long long words, long long w) {
+    if (w >= words) return 0;
+    if (!a1) return a0[w];
+    return (w & 1) ? a1[w >> 1] : a0[w >> 1];
+}
+
+__global__ void __launch_bounds__(WARP) sponge_kernel(u64* state, Script sc, const u64* a0,
+                                                       const u64* a1, long long n, long long k,
+                                                       u64* out) {
+    const int lane = threadIdx.x;
     sponge::State st;
     sponge::load(st, state);
+    const long long words = a1 ? 2 * n : n;
+    u64 cur = array_word(a0, a1, words, lane);  // in flight during the constants
     for (int i = 0; i < sc.n_pre; i++) sponge::observe(st, sc.pre[i]);
-    for (long long i = 0; i < n; i++) {
-        sponge::observe(st, a0[i]);
-        if (a1) sponge::observe(st, a1[i]);
+    for (long long b = 0; b < words; b += WARP) {
+        const u64 next = array_word(a0, a1, words, b + WARP + lane);
+        const int count = words - b < WARP ? (int)(words - b) : WARP;
+        for (int w = 0; w < count; w++) sponge::observe(st, sponge::shfl(cur, w));
+        cur = next;
     }
     for (long long q = 0; q < k; q++) {
         if (sc.n_labels) {
-            int l = sc.n_labels == 1 ? 0 : (int)q;
+            const int l = sc.n_labels == 1 ? 0 : (int)q;
             for (int c = sc.label_off[l]; c < sc.label_off[l + 1]; c++)
                 sponge::observe(st, sc.label_chunks[c]);
         }
-        out[q] = sponge::sample(st);
-        out[k + q] = sponge::sample(st);
+        u64 x0, x1;
+        sponge::sample_ext(st, x0, x1);
+        if (lane == 0) {
+            out[q] = x0;
+            out[k + q] = x1;
+        }
     }
     sponge::store(st, state);
 }
@@ -107,7 +126,7 @@ extern "C" int dp_sponge(void* state, const unsigned long long* pre, int n_pre,
     }
     sc.n_pre = n_pre;
     sc.n_labels = n_labels;
-    sponge_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((u64*)state, sc, (const u64*)a0,
+    sponge_kernel<<<1, WARP, 0, (cudaStream_t)stream>>>((u64*)state, sc, (const u64*)a0,
                                                      (const u64*)a1, n, k, (u64*)out);
     return (int)cudaGetLastError();
 }

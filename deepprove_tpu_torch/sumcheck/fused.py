@@ -7,7 +7,8 @@ extension array (two int64 planes) and `csrc/sumcheck.cu` runs the rounds:
 while the rows are longer than 2^(TAIL_LOG + 1), each round is a grid-wide
 `round_kernel` (fold the previous challenge, form the message) and a
 one-block `finish_kernel` (sum the message, absorb it, squeeze the next
-challenge); then one `tail_kernel` runs every remaining round in one block.
+challenge); then one `tail_kernel` runs every remaining round as one
+cooperative launch over the whole card (`tail_config`).
 A sumcheck of n > TAIL_LOG variables is 2 (n - TAIL_LOG) + 1 launches,
 one otherwise, besides the sponge launch of [n, max_degree]. On a CPU
 session the plain version runs: the per-round path of `prover.py` over the
@@ -30,11 +31,13 @@ from ..fields.gf import GF2
 from . import prover
 from .prover import ProverOutput, SumcheckProof, VirtualPolynomial
 
-# Rounds run in the one-block tail once a row is at most 2^TAIL_LOG long
-# after the fold. Measured on an H100 (PERF.md, the tail sweep): at 10 every
-# main-path shape's device time is within 5 % of its best tail start (2 to
-# 12), at 12 the batch opening's grows by a sixth, and 10 launches least.
-TAIL_LOG = 10
+# Rounds run in the tail once a row is at most 2^TAIL_LOG long after the
+# fold. Measured on an H100 (scripts/sweep_tail_log.py, PERF.md): of 8 to
+# 14, 14 gives the batch opening its least device time (7.58 ms against
+# 8.41 at 10), every other main-path shape within 1 % of its least (from 12
+# on each runs wholly in the tail), and the fewest launches (the LeNet's
+# sumchecks 173 against 291 at 10).
+TAIL_LOG = 14
 MAX_DEGREE = 5  # the main path's largest: the maxpool zerocheck
 
 # Launches of each kernel since the last reset (plain ints; callers reset),
@@ -54,8 +57,10 @@ def _lib():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.dp_sumcheck_round.argtypes = [i, p, p, p, p, i, ll, p, p, p, i, p, p, p, p]
         lib.dp_sumcheck_finish.argtypes = [i, p, ll, i, i, p, p, p, p]
-        lib.dp_sumcheck_tail.argtypes = [i, p, p, p, p, i, ll, i, i, p, i, p, p, p, p, p, p, p]
-        for fn in (lib.dp_sumcheck_round, lib.dp_sumcheck_finish, lib.dp_sumcheck_tail):
+        lib.dp_sumcheck_tail.argtypes = [i, p, p, p, p, i, ll, i, i, p, i, p, p, p, p, p, p, p, p]
+        lib.dp_sumcheck_tail_config.argtypes = [i] + [ctypes.POINTER(ctypes.c_int)] * 3
+        for fn in (lib.dp_sumcheck_round, lib.dp_sumcheck_finish, lib.dp_sumcheck_tail,
+                   lib.dp_sumcheck_tail_config):
             fn.restype = ctypes.c_int
         deg, threads = ctypes.c_int(), ctypes.c_int()
         lib.dp_sumcheck_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
@@ -160,22 +165,40 @@ def finish_cuda(partials, blocks: int, rnd: int, n: int, msgs, chals, state, deg
     LAUNCHES["sumcheck_finish"] += 1
 
 
+def tail_config(degree: int) -> dict:
+    """The tail kernel's launch at `degree`: the blocks of its cooperative
+    grid (every SM, as many as the occupancy calculator lets it hold),
+    threads a block, and blocks an SM. Raises if the card can hold none."""
+    if not 1 <= degree <= MAX_DEGREE:
+        raise ValueError(f"the sumcheck kernels take degree 1..{MAX_DEGREE}, got {degree}")
+    blocks, threads, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = _lib().dp_sumcheck_tail_config(degree, ctypes.byref(blocks), ctypes.byref(threads),
+                                         ctypes.byref(per_sm))
+    kernels.check(err, "sumcheck tail grid query")
+    return {"blocks": blocks.value, "threads": threads.value, "blocks_per_sm": per_sm.value}
+
+
 def tail_cuda(cur, other, m: int, length: int, rnd0: int, n: int, fidx, coeffs: GF2, msgs,
               chals, state, finals, degree: int) -> None:
-    """tail_kernel: rounds rnd0..n-1 on rows of `length` in cur (folding
-    first by challenge rnd0 - 1 when rnd0 > 0), ping-ponging with `other`
-    (room for rows of length / 2); both are overwritten. The last fold
-    goes into finals (2, m)."""
+    """tail_kernel, one cooperative launch over the card: rounds rnd0..n-1
+    on rows of `length` in cur (folding first by challenge rnd0 - 1 when
+    rnd0 > 0), ping-ponging with `other` (room for rows of length / 2); both
+    are overwritten. The last fold goes into finals (2, m). Raises if the
+    card refuses the grid."""
     _check(degree, state.device)
     lib = _lib()
     if n - rnd0 < 1 or length != 1 << (n - rnd0 + (1 if rnd0 else 0)):
         raise ValueError(f"tail of rounds {rnd0}..{n - 1} on rows of {length}")
     with torch.cuda.device(state.device):
+        blocks = tail_config(degree)["blocks"]
+        # a row of partial message a block, then the round's challenge
+        scratch = torch.empty(blocks * 2 * (degree + 1) + 2, dtype=torch.int64, device=state.device)
         err = lib.dp_sumcheck_tail(
             degree, cur[0].data_ptr(), cur[1].data_ptr(), other[0].data_ptr(),
             other[1].data_ptr(), m, length, rnd0, n, fidx.data_ptr(), fidx.shape[0],
             coeffs.a0.data_ptr(), coeffs.a1.data_ptr(), msgs.data_ptr(), chals.data_ptr(),
-            state.data_ptr(), finals.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            state.data_ptr(), finals.data_ptr(), scratch.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
         )
     kernels.check(err, "sumcheck tail kernel launch")
     LAUNCHES["sumcheck_tail"] += 1

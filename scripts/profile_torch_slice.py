@@ -308,13 +308,15 @@ def profile_path(cs, path) -> None:
     windows, launch_at, kernel_us_by_corr = [], [], {}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == torch.autograd.DeviceType.CUDA:
+            if e.name() == "sumcheck":
+                continue  # the range's own record on the device timeline, not a kernel
             rec = per_kernel[e.name()[:160]]
             rec[0] += e.duration_ns() / 1e3
             rec[1] += 1
             kernel_us_by_corr[e.correlation_id()] = e.duration_ns() / 1e3
         elif e.name() == "sumcheck":
             windows.append((e.start_ns(), e.start_ns() + e.duration_ns()))
-        elif "LaunchKernel" in e.name():
+        elif "LaunchKernel" in e.name() or "LaunchCooperativeKernel" in e.name():  # the tail is cooperative
             launch_at.append((e.start_ns(), e.correlation_id()))
     windows.sort()
     in_sumcheck = []

@@ -36,7 +36,9 @@ def test_read_challenges_match_both_host_transcripts(k):
     assert dt.pulls == 0
 
 
-@pytest.mark.parametrize("n_base, n_ext", [(1, 0), (3, 1), (5, 3), (7, 9), (13, 5)])
+# the last four reach and cross the 32-word batches in which the sponge
+# kernel reads an array, whose plain reference this is
+@pytest.mark.parametrize("n_base, n_ext", [(1, 0), (3, 1), (5, 3), (7, 9), (13, 5), (32, 16), (33, 17), (1, 33), (64, 0)])
 def test_absorbs_of_odd_lengths_match_host(n_base, n_ext):
     rng = np.random.default_rng(n_base * 31 + n_ext)
     base = rng.integers(0, P, size=n_base, dtype=np.uint64)

@@ -92,3 +92,10 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_large_degrees():
         fused.prove_rounds_cuda(vp, dt, 3, 2)
     with pytest.raises(ValueError):
         fused._check(6, torch.device("cuda"))
+
+
+@pytest.mark.parametrize("degree", [0, 6])
+def test_tail_config_refuses_degrees_the_kernels_do_not_take(degree):
+    """The tail's grid query refuses a degree before it reaches the library."""
+    with pytest.raises(ValueError):
+        fused.tail_config(degree)

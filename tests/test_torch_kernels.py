@@ -136,47 +136,78 @@ def test_cuda_tree_root_matches_cpu_tree(cuda_device):
     assert MerkleTree.from_leaves(gf.from_u64(leaves, cuda_device)).root == cpu
 
 
+# sponge calls from one entry state: (challenges, array elements, base
+# array?, labels); several labels take one challenge each. The kernel reads
+# the array 32 words at a time: arrays of 16, 17 and 33 extension elements
+# (32, 34, 66 words) and 32 and 33 base words reach and cross that batch.
+_SPONGE_CALLS = [(k, a, False, lab) for k in (0, 1, 2, 5, 33) for a in (0, 1, 5) for lab in ("none", "one")]
+_SPONGE_CALLS += [(k, 5, True, lab) for k in (0, 1, 2, 5, 33) for lab in ("none", "one")]
+_SPONGE_CALLS += [(3, a, base, "several") for a, base in ((0, False), (1, False), (5, False), (5, True))]
+_SPONGE_CALLS += [(k, a, False, lab) for k, lab in ((1, "none"), (33, "one"), (3, "several")) for a in (16, 17, 33)]
+_SPONGE_CALLS += [(k, a, True, "one") for k in (0, 5) for a in (32, 33)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 2, 3, 5, 7, 16, 33])
-def test_cuda_sponge_matches_plain(cuda_device, k):
+@pytest.mark.parametrize("olen", range(5))
+@pytest.mark.parametrize("ilen", range(4))
+def test_cuda_sponge_matches_plain(cuda_device, ilen, olen):
+    """Entry states of every input and output count; calls of 0-33
+    challenges, arrays of 0, 1, 5, 16, 17 and 33 extension elements and of
+    5, 32 and 33 base ones, no, one and several labels: challenges and the
+    final state bit for bit."""
     from deepprove_tpu_torch.transcript import device as devt
     from deepprove_tpu_torch.transcript.session import label_chunks
 
-    rng = np.random.default_rng(30 + k)
-    cpu = torch.from_numpy(rng.integers(0, gf.P, size=devt.STATE_WORDS, dtype=np.uint64).view(np.int64))
-    cpu[8:12], cpu[12], cpu[17] = 0, 0, 0
-    dev = cpu.to(cuda_device)
-    arr = rng.integers(0, gf.P, size=(2, k + 2), dtype=np.uint64)
-    ext = gf.GF2(gf.from_u64(arr[0]), gf.from_u64(arr[1]))
-    label = (tuple(label_chunks(b"a label longer than the rate")),)
-    before = devt.LAUNCHES
-    got = devt.sponge(dev, pre=[k, 3], arr=gf.GF2(ext.a0.to(cuda_device), ext.a1.to(cuda_device)),
-                      labels=label, k=k)
-    assert devt.LAUNCHES == before + 1
-    want = devt.sponge_plain(cpu, pre=[k, 3], arr=ext, labels=label, k=k)
-    assert torch.equal(got.a0.cpu(), want.a0) and torch.equal(got.a1.cpu(), want.a1)
-    assert torch.equal(dev.cpu(), cpu)
+    rng = np.random.default_rng(30 + 5 * ilen + olen)
+    entry = torch.from_numpy(rng.integers(0, gf.P, size=devt.STATE_WORDS, dtype=np.uint64).view(np.int64))
+    entry[8 + ilen : 12], entry[12], entry[17] = 0, ilen, olen
+    labels = {"none": (), "one": (tuple(label_chunks(b"a label longer than the rate")),),
+              "several": tuple(tuple(label_chunks(lbl)) for lbl in (b"alpha", b"beta", b"a longer third label"))}
+    for k, size, base, lab in _SPONGE_CALLS:
+        vals = rng.integers(0, gf.P, size=(2, size), dtype=np.uint64)
+        arr = gf.from_u64(vals[0]) if base else gf.GF2(gf.from_u64(vals[0]), gf.from_u64(vals[1]))
+        arr_dev = arr.to(cuda_device) if base else gf.GF2(arr.a0.to(cuda_device), arr.a1.to(cuda_device))
+        cpu, dev = entry.clone(), entry.to(cuda_device)
+        before = devt.LAUNCHES
+        got = devt.sponge(dev, pre=[k, 3], arr=arr_dev, labels=labels[lab], k=k)
+        assert devt.LAUNCHES == before + 1
+        want = devt.sponge_plain(cpu, pre=[k, 3], arr=arr, labels=labels[lab], k=k)
+        case = (k, size, base, lab)
+        assert torch.equal(got.a0.cpu(), want.a0) and torch.equal(got.a1.cpu(), want.a1), case
+        assert torch.equal(dev.cpu(), cpu), case
+
+
+# (num_vars, rows, products, degree, tail start): five rows at 7 variables
+# for each degree, with the tail from round 0 and from round 4; then the
+# edge shapes of torch_reference.SUMCHECK_EDGE_CASES
+_SUMCHECK_CASES = {
+    f"n7_degree_{d}_tail_{t}": (7, 5, [list(range(d)), [4]], d, t) for t in (10, 3) for d in range(1, 6)
+}
+_SUMCHECK_CASES.update(R.SUMCHECK_EDGE_CASES)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tail_log", [10, 3])
-@pytest.mark.parametrize("degree", [1, 2, 3, 5])
-def test_cuda_fused_sumcheck_matches_plain(cuda_device, monkeypatch, degree, tail_log):
+@pytest.mark.parametrize("case", list(_SUMCHECK_CASES))
+def test_cuda_fused_sumcheck_matches_plain(cuda_device, monkeypatch, case):
     from deepprove_tpu_torch.sumcheck import VirtualPolynomial, fused, prover
     from deepprove_tpu_torch.transcript import BasicTranscript
     from deepprove_tpu_torch.transcript.session import DeviceTranscript
 
-    monkeypatch.setattr(fused, "TAIL_LOG", tail_log)
-    n, rng = 7, np.random.default_rng(40 + degree)
+    n, m, products, degree, tail_log = _SUMCHECK_CASES[case]
+    # the case is well formed: its products index its rows and reach its degree
+    assert max(len(f) for f in products) == degree and all(0 <= r < m for f in products for r in f)
+    if tail_log is not None:
+        monkeypatch.setattr(fused, "TAIL_LOG", tail_log)
+    rng = np.random.default_rng(40 + len(case) + degree)
     vp = VirtualPolynomial.new(n)
-    rows = rng.integers(0, gf.P, size=(2, 5, 1 << n), dtype=np.uint64)
+    rows = rng.integers(0, gf.P, size=(2, m, 1 << n), dtype=np.uint64)
     vp.add_mle_rows(gf.GF2(gf.from_u64(rows[0], cuda_device), gf.from_u64(rows[1], cuda_device)))
-    vp.add_product((3, 1), list(range(degree)))
-    vp.add_product((1, 0), [4])  # lower degree: padded with the constant 1
+    for f in products:  # host-pair coefficients
+        vp.add_product(tuple(int(v) for v in rng.integers(0, gf.P, size=2, dtype=np.uint64)), f)
     before = dict(fused.LAUNCHES)
     dt = DeviceTranscript.from_host(BasicTranscript(b"k"), cuda_device)
     out = fused.prove_device(vp, dt)
-    above = max(0, n - tail_log)
+    above = max(0, n - fused.TAIL_LOG)
     assert fused.LAUNCHES["sumcheck_round"] - before["sumcheck_round"] == above
     assert fused.LAUNCHES["sumcheck_finish"] - before["sumcheck_finish"] == above
     assert fused.LAUNCHES["sumcheck_tail"] - before["sumcheck_tail"] == 1
@@ -187,3 +218,14 @@ def test_cuda_fused_sumcheck_matches_plain(cuda_device, monkeypatch, degree, tai
     for got, want in pairs:
         assert torch.equal(got.a0.cpu(), want.a0.cpu()) and torch.equal(got.a1.cpu(), want.a1.cpu())
     assert torch.equal(dt.state.cpu(), dt_plain.state)
+
+
+@pytest.mark.cuda
+def test_cuda_tail_runs_on_every_sm(cuda_device):
+    """The tail is one cooperative grid with the same blocks on every SM."""
+    from deepprove_tpu_torch.sumcheck import fused
+
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for degree in range(1, fused.MAX_DEGREE + 1):
+        cfg = fused.tail_config(degree)
+        assert cfg["blocks_per_sm"] >= 1 and cfg["blocks"] == sms * cfg["blocks_per_sm"], cfg

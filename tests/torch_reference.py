@@ -32,6 +32,23 @@ SUMCHECK_NUM_VARS = 4
 SUMCHECK_LABEL = b"torch-port sumcheck"
 SUMCHECK_PRODUCTS = [((1, 0), [0, 1, 2]), ((3, 9), [1])]
 
+# The CUDA sumcheck kernels' edge shapes (chip_smoke.py and the `cuda`
+# tests hold them against the per-round prover): name -> (num_vars, rows,
+# products' factor lists, degree, tail start or None for fused.TAIL_LOG).
+# One row; more products than a tail block has threads (512); each degree
+# 1..5 with a product of lower degree; a tail from round 0 (no first fold);
+# one variable; 37 rows, which divide over no block or grid (with a round
+# above a tail from 10); a tail of one round that folds first.
+SUMCHECK_EDGE_CASES = {
+    "one_row": (8, 1, [[0, 0], [0]], 2, None),
+    "600_products": (9, 3, [[i % 3, (i + 1) % 3] for i in range(600)], 2, None),
+    **{f"degree_{d}": (9, 6, [list(range(d)), [5]], d, None) for d in range(1, 6)},
+    "tail_from_round_0": (6, 4, [[0, 1], [2, 3]], 2, None),
+    "one_variable": (1, 3, [[0, 1], [2]], 2, None),
+    "37_rows": (11, 37, [[i, (i + 1) % 37] for i in range(37)], 2, 10),
+    "tail_of_one_round": (5, 4, [[0, 1, 2], [3]], 3, 1),
+}
+
 # basefold: one 2^6 poly (RS path) and one 2^2 poly (trivial commitment)
 BASEFOLD_KW = dict(num_queries=11, basecode_msg_size_log=2)
 BASEFOLD_MAX_LOG = 6
