@@ -65,11 +65,13 @@ Phases, each printing one JSON line:
                profiler's records, after the paths: the profiler's
                instrumentation slows the rest of a process), their plain
                versions' times and their bounds: bytes for the round
-               kernel, the dependent-multiply latency (measured by a chain
-               of multiplies) for the sponge and finish kernels, the
-               larger of the two for the tail (timed at the batch
-               opening's last 10 rounds, and at fused.TAIL_LOG rounds too
-               when that differs).
+               kernel, the dependent-product latency (measured by a chain
+               of a permutation's products in their order, beside a chain
+               of Goldilocks multiplies) for the sponge and finish kernels (the
+               finish timed at degree 2 and, on as many partials, at the
+               maxpool zerocheck's degree 5), the larger of the two for
+               the tail (timed at the batch opening's last 10 rounds, and
+               at fused.TAIL_LOG rounds too when that differs).
 Then the seconds each phase took, the kernel table line (five kernels;
 their `launches` are those of the cnn phase, the main path) and, last,
 the device line.
@@ -436,12 +438,12 @@ def sponge_permutations(absorbs: int, samples: int) -> int:
     return perms
 
 
-def time_sponge(mul_ns: float) -> dict:
+def time_sponge(chain_ns: float) -> dict:
     """One sumcheck round's sponge call (absorb a degree-3 message, the round
     label, squeeze one challenge) on a fresh state: the kernel, the plain
     version (the native host permutation), and the bound: its permutations
-    (`sponge_permutations`: 3) of 112 dependent multiplies at the card's
-    multiply latency."""
+    (`sponge_permutations`: 3) of 112 dependent products at the card's
+    latency of a permutation's products (`product_latencies`)."""
     from deepprove_tpu_torch.fields import gf
     from deepprove_tpu_torch.sumcheck.prover import ROUND_CHUNKS
     from deepprove_tpu_torch.transcript import device as devt
@@ -457,16 +459,37 @@ def time_sponge(mul_ns: float) -> dict:
         devt.sponge_plain(st_cpu.zero_(), arr=msg_cpu, labels=(ROUND_CHUNKS,), k=1)
     plain_ms = (time.perf_counter() - t0) * 1e3 / 200
     perms = sponge_permutations(2 * msg.shape[0] + len(ROUND_CHUNKS), 2)
-    return {"kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": perms * 112 * mul_ns * 1e-6,
+    return {"kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": perms * 112 * chain_ns * 1e-6,
             "permutations": perms}
 
 
-def mul_latency_ns(iters: int = 1 << 20) -> float:
-    """The card's latency of one dependent Goldilocks multiply, in ns."""
+def product_latencies(iters: int = 112 * 9362) -> dict:
+    """The card's latency of one dependent product, in ns, by two chains in
+    one thread (`devt.mul_chain`): `mul_latency_ns` of Goldilocks
+    multiplies, and `chain_product_ns` of a permutation's 112 products in
+    their order (squares, multiplies, multiply-adds), the unit of the
+    sponge-running kernels' bounds. Each chain's value is held against
+    Python ints first."""
+    from deepprove_tpu_torch.fields import host
     from deepprove_tpu_torch.transcript import device as devt
 
-    x = torch.tensor([3, 5], dtype=torch.int64, device="cuda")
-    return cuda_ms(lambda: devt.mul_chain(x, iters), 3) * 1e6 / iters
+    p = host.P
+    out = {}
+    for order, key in ((0, "mul_latency_ns"), (1, "chain_product_ns")):
+        x = torch.tensor([3, 5], dtype=torch.int64, device="cuda")
+        devt.mul_chain(x, 224, order)
+        want = 3 * pow(5, 224, p) % p
+        if order == 1:
+            want = 3
+            for _ in range(2):
+                for r in range(30):
+                    want = want * want * 25 % p
+                    if 4 <= r < 26:
+                        want = (want * 5 + 5) % p
+        if int(x[0]) % (1 << 64) != want:
+            raise AssertionError(f"the product chain of order {order} disagrees with Python ints")
+        out[key] = cuda_ms(lambda: devt.mul_chain(x, iters, order), 3) * 1e6 / iters
+    return out
 
 
 def sumcheck_cases() -> dict:
@@ -560,12 +583,13 @@ def check_sumcheck(cases=None) -> dict:
     return {"cases": per_case, "mismatches": mismatches, "max_abs_err": max_err}
 
 
-def time_sumcheck(mul_ns: float) -> dict:
+def time_sumcheck(chain_ns: float) -> dict:
     """Each sumcheck kernel's device time at the batch opening's shape (the
     round kernel's second round, which folds), its plain version's, and its
-    bound. The tail is timed at TIMED_TAIL_ROUNDS rounds (the shape the
-    kernel table has kept since the tail's first port) and, when the
-    default tail start differs, at fused.TAIL_LOG rounds too."""
+    bound; the finish also at degree 5 on as many partials. The tail is
+    timed at TIMED_TAIL_ROUNDS rounds (the shape the kernel table has kept
+    since the tail's first port) and, when the default tail start differs,
+    at fused.TAIL_LOG rounds too."""
     from deepprove_tpu_torch.fields import gf
     from deepprove_tpu_torch.sumcheck import VirtualPolynomial, fused, prover
     from deepprove_tpu_torch.transcript import BasicTranscript
@@ -603,7 +627,23 @@ def time_sumcheck(mul_ns: float) -> dict:
     # absorbs and a squeeze of 2 words from a state with no pending input
     round_bytes = m * length * 16 * 1.5
     perms = sponge_permutations(2 * (degree + 1) + len(prover.ROUND_CHUNKS), 2)
-    finish_bound = perms * 112 * mul_ns * 1e-6
+    finish_bound = perms * 112 * chain_ns * 1e-6
+
+    def time_finish_degree(d: int) -> dict:
+        """The finish at degree d on as many random partials as the timed
+        round left (the maxpool zerocheck's degree, 5: 14 absorbs)."""
+        from deepprove_tpu_torch.fields import host
+
+        words = np.random.default_rng(8).integers(0, host.P, size=blocks * 2 * (d + 1), dtype=np.uint64)
+        part = gf.from_u64(words, "cuda")
+        out = torch.empty((2, n, d + 1), dtype=torch.int64, device="cuda")
+        ms = device_ms(lambda: fused.finish_cuda(part, blocks, 1, n, out, chals, dt.state, d), 50, "finish_kernel")
+        m_d = gf.GF2(gf.from_u64(words[0:2 * (d + 1):2], "cuda"), gf.from_u64(words[1:2 * (d + 1):2], "cuda"))
+        plain, _ = wall_ms(lambda: [dt_cpu.step(arr=m_d, labels=(prover.ROUND_CHUNKS,), k=1) for _ in range(50)])
+        p_d = sponge_permutations(2 * (d + 1) + len(prover.ROUND_CHUNKS), 2)
+        return {"kernel_ms": ms, "plain_ms": plain / 50, "bound_ms": p_d * 112 * chain_ns * 1e-6,
+                "bound_by": "operations", "blocks": blocks, "permutations": p_d}
+
     finals = torch.empty((2, m), dtype=torch.int64, device="cuda")
 
     def time_tail(rounds: int) -> dict:
@@ -645,7 +685,8 @@ def time_sumcheck(mul_ns: float) -> dict:
         "round": {"kernel_ms": round_ms, "plain_ms": plain_round_ms,
                   "bound_ms": round_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"},
         "finish": {"kernel_ms": finish_ms, "plain_ms": plain_finish_ms, "bound_ms": finish_bound,
-                   "bound_by": "operations", "blocks": blocks, "permutations": perms},
+                   "bound_by": "operations", "blocks": blocks, "permutations": perms,
+                   "degree_5": time_finish_degree(5)},
         "tail": tail, **extra,
     }
 
@@ -914,9 +955,9 @@ def phase_kernel_times() -> dict:
     records, beside their plain versions and bounds. It runs after the path
     phases: a process keeps paying for the profiler's instrumentation after
     it has run, and the paths' times must not carry that."""
-    mul_ns = mul_latency_ns()
-    result = {"phase": "kernel_times", "ok": True, "mul_latency_ns": mul_ns,
-              "sponge": time_sponge(mul_ns), **time_sumcheck(mul_ns)}
+    lat = product_latencies()
+    result = {"phase": "kernel_times", "ok": True, **lat,
+              "sponge": time_sponge(lat["chain_product_ns"]), **time_sumcheck(lat["chain_product_ns"])}
     emit(result)
     return result
 
@@ -948,7 +989,8 @@ def main() -> int:
     sc_err = max([k["sumcheck"]["max_abs_err"]]
                  + [p["largest_sumcheck"].get("max_abs_err", 0) for p in paths])
     sc, sp = {**times, "max_abs_err": sc_err}, times["sponge"]
-    res, mul = stats["sponge_kernels"], {"mul_latency_ns": times["mul_latency_ns"]}
+    res = stats["sponge_kernels"]
+    mul = {k: times[k] for k in ("mul_latency_ns", "chain_product_ns")}
     tail = sc["tail"]
     rows = [
         ("poseidon2_compress_level", "poseidon2_compress.cu", "deepprove_tpu/hashing/poseidon2_pallas.py:142",
@@ -961,7 +1003,9 @@ def main() -> int:
          {**res["sponge_kernel"], **mul, "permutations": sp["permutations"]}),
         ("sumcheck_round", "sumcheck.cu", "deepprove_tpu/sumcheck/fused.py:164", sc["round"], sc["max_abs_err"], {}),
         ("sumcheck_finish", "sumcheck.cu", "deepprove_tpu/sumcheck/fused.py:164", sc["finish"], sc["max_abs_err"],
-         {**res["finish_kernel"], **mul}),
+         {**res["finish_kernel"], **mul, "partials": sc["finish"]["blocks"],
+          "permutations": sc["finish"]["permutations"], "degree_5_ms": sc["finish"]["degree_5"]["kernel_ms"],
+          "degree_5_bound_ms": sc["finish"]["degree_5"]["bound_ms"]}),
         ("sumcheck_tail", "sumcheck.cu", "deepprove_tpu/sumcheck/fused.py:64", tail, sc["max_abs_err"],
          {**res["tail_kernel"], **mul, "grid_blocks": tail["grid"]["blocks"],
           "threads_per_block": tail["grid"]["threads"], "rounds": tail["rounds"],

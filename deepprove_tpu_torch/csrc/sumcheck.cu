@@ -254,15 +254,8 @@ __device__ __forceinline__ ext absorb_and_squeeze(sponge::State& st, u64 word, i
     const int lane = threadIdx.x & 31;
     if (lane < V) msgs[(long long)(lane & 1) * n * (D + 1) + rnd * (D + 1) + (lane >> 1)] = word;
     const u64 mine = lane < V ? word : lane == V ? sponge::ROUND_LABEL_0 : sponge::ROUND_LABEL_1;
-    // the V + 2 absorbs and the 2 squeezes through one step site: one
-    // inlined permutation
     ext c;
-#pragma unroll 1
-    for (int w = 0; w < V + 4; w++) {
-        const u64 out = sponge::step(st, sponge::shfl(mine, w < V + 2 ? w : 0), w >= V + 2);
-        if (w == V + 2) c.a0 = out;
-        if (w == V + 3) c.a1 = out;
-    }
+    sponge::absorb_and_sample_ext(st, mine, V + 2, c.a0, c.a1);
     if (lane == 0) {
         chals[rnd] = c.a0;
         chals[n + rnd] = c.a1;
@@ -292,26 +285,76 @@ round_kernel(const u64* __restrict__ s0, const u64* __restrict__ s1, u64* d0, u6
     if (threadIdx.x < V) partials[(long long)blockIdx.x * V + threadIdx.x] = total[threadIdx.x];
 }
 
+// The partial messages' sum (V = 2(D + 1) words a row, row b at words
+// b V ...), returned in the lanes of warp 0 (lane k < V: word k). The
+// shuffle-first reduction of block_sum, arranged so that nothing before the
+// sponge branches on the thread index within a warp: ptxas then needs no
+// divergence check before the sponge's shuffles. block_sum's last step is
+// such a branch, and with it ptxas guards each of them (PERF.md, the finish
+// kernel's design):
+//   - each thread loads FINISH_BATCH rows as 16-byte (a0, a1) words, every
+//     load issued before any add (one latency of L2 for the timed shape's
+//     1024 rows, not one a row), in a loop whose trip count is the same in
+//     every thread (rows past nblocks are zeros by predicate);
+//   - butterfly shuffles leave each warp's sum in every lane, which all
+//     write to red (the same word);
+//   - after one barrier every lane of warp 0 adds the warps' words (lanes
+//     at or past V add word 0 and keep it unused).
+constexpr int FINISH_BATCH = 4;
+
 template <int D>
-__global__ void __launch_bounds__(ROUND_THREADS)
-finish_kernel(const u64* __restrict__ partials, long long nblocks, int rnd, int n, u64* msgs,
-              u64* chals, u64* state) {
-    constexpr int V = 2 * (D + 1);
-    __shared__ u64 red[(ROUND_THREADS / 32) * V];
-    __shared__ u64 total[V];
-    sponge::State st;
-    if (threadIdx.x < 32) sponge::load(st, state);  // in flight during the sum
+__device__ __forceinline__ u64 finish_sum(const u64* __restrict__ partials, long long nblocks) {
+    constexpr int V = 2 * (D + 1), WARPS = ROUND_THREADS / 32;
+    __shared__ u64 red[WARPS * V];
+    const int warp = threadIdx.x >> 5;
+    const ulonglong2* rows = reinterpret_cast<const ulonglong2*>(partials);  // row b: words b (D + 1) + t
     ext sums[D + 1];
 #pragma unroll
     for (int t = 0; t <= D; t++) sums[t] = {0, 0};
-    for (long long b = threadIdx.x; b < nblocks; b += ROUND_THREADS) {
+    for (long long base = 0; base < nblocks; base += FINISH_BATCH * ROUND_THREADS) {
+        ulonglong2 v[FINISH_BATCH][D + 1];
 #pragma unroll
-        for (int t = 0; t <= D; t++)
-            sums[t] = eadd(sums[t], load(partials + 2 * t, partials + 2 * t + 1, b * V));
+        for (int k = 0; k < FINISH_BATCH; k++) {
+            const long long b = base + k * ROUND_THREADS + threadIdx.x;
+#pragma unroll
+            for (int t = 0; t <= D; t++) v[k][t] = b < nblocks ? rows[b * (D + 1) + t] : make_ulonglong2(0, 0);
+        }
+#pragma unroll
+        for (int k = 0; k < FINISH_BATCH; k++)
+#pragma unroll
+            for (int t = 0; t <= D; t++) sums[t] = eadd(sums[t], ext{v[k][t].x, v[k][t].y});
     }
-    block_sum<D>(sums, red, total);
-    if (threadIdx.x < 32) {
-        absorb_and_squeeze<D>(st, threadIdx.x < V ? total[threadIdx.x] : 0, rnd, n, msgs, chals);
+#pragma unroll
+    for (int t = 0; t <= D; t++) {
+        u64 a = sums[t].a0, b = sums[t].a1;
+#pragma unroll
+        for (int off = 16; off; off >>= 1) {
+            a = fadd(a, (u64)__shfl_xor_sync(0xffffffffu, (unsigned long long)a, off));
+            b = fadd(b, (u64)__shfl_xor_sync(0xffffffffu, (unsigned long long)b, off));
+        }
+        red[warp * V + 2 * t] = a;
+        red[warp * V + 2 * t + 1] = b;
+    }
+    __syncthreads();
+    const int k = (threadIdx.x & 31) < V ? threadIdx.x & 31 : 0;
+    u64 word = 0;
+#pragma unroll
+    for (int w = 0; w < WARPS; w++) word = fadd(word, red[w * V + k]);
+    return word;
+}
+
+template <int D>
+__global__ void __launch_bounds__(ROUND_THREADS, 1)
+finish_kernel(const u64* __restrict__ partials, long long nblocks, int rnd, int n, u64* msgs,
+              u64* chals, u64* state) {
+    // Every warp loads the state (in flight during the sum), and warp 0 alone
+    // runs the sponge: a load guarded by the thread index brings back ptxas'
+    // divergence checks on the sponge's shuffles (PERF.md).
+    sponge::State st;
+    sponge::load(st, state);
+    const u64 word = finish_sum<D>(partials, nblocks);
+    if ((threadIdx.x >> 5) == 0) {
+        absorb_and_squeeze<D>(st, word, rnd, n, msgs, chals);
         sponge::store(st, state);
     }
 }

@@ -19,8 +19,8 @@
 //
 // What bounds it: latency. Every permutation depends on the one before:
 // a permutation is 8 external rounds of 3 dependent multiplies (the S-box)
-// and 22 internal rounds of 4, 112 dependent Goldilocks multiplies, each a
-// chain of 32-bit multiply-adds and a reduction. So one warp runs the call
+// and 22 internal rounds of 4, 112 dependent Goldilocks multiplies, each
+// 32-bit partial products, their carries and a reduction. So one warp runs the call
 // with the state in registers, a word a lane (transcript.cuh), which leaves
 // each round the latency of its multiply chain and a few shuffles; the
 // absorbed array is read 32 words at a time, the next 32 in flight while
@@ -84,20 +84,40 @@ __global__ void __launch_bounds__(WARP) sponge_kernel(u64* state, Script sc, con
     sponge::store(st, state);
 }
 
-// x[0] <- x[0] * x[1]^iters by a chain of dependent multiplies in one
-// thread: its time over `iters` is the latency of one Goldilocks multiply,
-// the unit of the sponge's bound.
+// x[0] <- a chain of `iters` dependent products on x[0] in one thread: its
+// time over `iters` is the latency of one dependent product. ORDER 0:
+// gl::mul by x[1], the latency of one Goldilocks multiply. ORDER 1: the
+// sponge's products (transcript.cuh) on a permutation's chain in their
+// order, 112 a permutation (8 external S-boxes: a square, then two
+// multiplies; 22 internal rounds: an S-box, then a multiply-add), the unit
+// of the sponge-running kernels' bounds; `iters` a multiple of 112. The
+// round loops stay rolled: unrolled, the chain's code outgrows the
+// instruction cache and the time is that of fetching it.
+template <int ORDER>
 __global__ void __launch_bounds__(1) mul_chain_kernel(u64* x, long long iters) {
     u64 v = x[0];
     const u64 w = x[1];
-    for (long long i = 0; i < iters; i++) v = gl::mul(v, w);
+    if (ORDER == 0) {
+        for (long long i = 0; i < iters; i++) v = gl::mul(v, w);
+    } else {
+        for (long long i = 0; i < iters; i += 112) {
+#pragma unroll 1
+            for (int r = 0; r < 4; r++) v = sponge::mul(sponge::mul(sponge::sqr(v), w), w);
+#pragma unroll 1
+            for (int r = 0; r < 22; r++) v = sponge::mul_add(sponge::mul(sponge::mul(sponge::sqr(v), w), w), w, w);
+#pragma unroll 1
+            for (int r = 0; r < 4; r++) v = sponge::mul(sponge::mul(sponge::sqr(v), w), w);
+        }
+    }
     x[0] = gl::canonical(v);
 }
 
 }  // namespace
 
-extern "C" int dp_mul_chain(void* x, long long iters, void* stream) {
-    mul_chain_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((u64*)x, iters);
+extern "C" int dp_mul_chain(void* x, long long iters, int order, void* stream) {
+    if (order == 0) mul_chain_kernel<0><<<1, 1, 0, (cudaStream_t)stream>>>((u64*)x, iters);
+    else if (order == 1 && iters % 112 == 0) mul_chain_kernel<1><<<1, 1, 0, (cudaStream_t)stream>>>((u64*)x, iters);
+    else return (int)cudaErrorInvalidValue;
     return (int)cudaGetLastError();
 }
 

@@ -21,19 +21,36 @@
 // word i of the state (sponge[i], and ibuf[i], obuf[i] for i < 4) in
 // registers; the four segments of a warp compute the same thing, so every
 // shuffle is a full-warp one and no lane waits on a mask. ilen and olen are
-// the same in every lane. What this buys against one thread holding all 8
-// words (PERF.md, the sponge's layout comparison):
+// the same in every lane. What bounds a permutation is its chain of 112
+// dependent multiplies (8 external rounds of an S-box, 3 deep; 22 internal
+// rounds of an S-box and one multiply-add), and one warp's issue of the
+// work around it, so the layout keeps that work off the chain and small
+// (PERF.md, the sponge's and the finish kernel's designs):
 //   - an external round's 8 S-boxes run at once, one per lane: the round
 //     costs the latency of 3 dependent multiplies, not the issue of 32;
-//   - M4 and the external sum go by shuffles: each lane gathers the other
+//     M4 and the external sum go by shuffles: each lane gathers the other
 //     three words of its half, forms its row of M4 unreduced, and adds the
-//     other half's row (a shuffle across the halves);
-//   - the internal round's sum of lanes 1..7 is a shuffle reduction that
-//     runs beside lane 0's S-box, and its 8 multiply-adds run at once.
-// Everything is inlined, so the state never leaves registers (0 stack and 0
-// local bytes). The per-lane round constants and diagonal are loaded into
-// registers once a call; the round loops stay rolled and pick a round's
-// constant by comparisons, which keeps each inlined permutation small.
+//     other half's row (a shuffle across the halves); the next round's
+//     constant is added in the same sum before its one fold;
+//   - an S-box's two middle products (x^3, x^4) are split between lanes l
+//     and l ^ 8, which hold the same word, and exchanged by a shuffle: one
+//     product's issue where there were two;
+//   - the sponge's products are four independent 32 x 32 -> 64 products
+//     added in two carry chains (mul_wide below), shorter than
+//     goldilocks.cuh's chain of multiply-adds;
+//   - in the internal rounds every lane carries a copy of word 0 and runs
+//     its S-box itself, so no broadcast is on the chain: the sum of words
+//     1..7 is a shuffle reduction beside the S-box, word 0's multiply-add
+//     (s0 (d0 + 1) + S) runs in every lane, and each lane's own
+//     multiply-add runs beside the next round's S-box.
+// Values inside a permutation are lazy (goldilocks.cuh) and need not equal
+// p2::permute's lazy values; a duplex brings every word below p, so each
+// state word equals the host challenger's. Everything is inlined, so the
+// state never leaves registers (0 stack and 0 local bytes). The per-lane
+// round constants and diagonal are loaded into registers once a call; the
+// round loops stay rolled (two internal rounds a step) and the external
+// constants move down a register a round, which keeps each inlined
+// permutation small.
 #pragma once
 
 #include "poseidon2.cuh"
@@ -71,56 +88,196 @@ __device__ __forceinline__ gl::wide shfl8_xor(gl::wide v, int mask) {
             __shfl_xor_sync(FULL, v.hi, mask, 8)};
 }
 
-__device__ __forceinline__ u64 pick(const u64* a, int r) {
-    // a register array indexed by a runtime value would go to local memory
-    return r == 0 ? a[0] : r == 1 ? a[1] : r == 2 ? a[2] : a[3];
+// The sponge's products: the 128-bit product from four independent
+// 32 x 32 -> 64 products, added in two carry chains, so that the products
+// issue at once and the chain is shorter than goldilocks.cuh's chain of
+// multiply-adds; a square takes its cross product once. Exact for any u64
+// operands (the total is below 2^128, so the top word cannot carry out);
+// reduced lazily by gl::reduce. Sponge-only: the Merkle kernel, bound by
+// its multiply pipe's issue and not by a chain's latency, keeps
+// goldilocks.cuh's (with these it took 0.776 ms a level against 0.677,
+// PERF.md).
+__device__ __forceinline__ gl::u128 mul_wide(u64 a, u64 b) {
+    u64 lo, hi;
+    asm("{\n\t"
+        ".reg .u32 a0, a1, b0, b1, q0, q1, u0, u1, v0, v1, w0, w1, r1, r2, r3;\n\t"
+        ".reg .u64 p00, p01, p10, p11;\n\t"
+        "mov.b64 {a0, a1}, %2;\n\t"
+        "mov.b64 {b0, b1}, %3;\n\t"
+        "mul.wide.u32 p00, a0, b0;\n\t"
+        "mul.wide.u32 p01, a0, b1;\n\t"
+        "mul.wide.u32 p10, a1, b0;\n\t"
+        "mul.wide.u32 p11, a1, b1;\n\t"
+        "mov.b64 {q0, q1}, p00;\n\t"
+        "mov.b64 {u0, u1}, p01;\n\t"
+        "mov.b64 {v0, v1}, p10;\n\t"
+        "mov.b64 {w0, w1}, p11;\n\t"
+        "add.cc.u32 r1, q1, u0;\n\t"
+        "addc.cc.u32 r2, u1, w0;\n\t"
+        "addc.u32 r3, w1, 0;\n\t"  // w1 <= 2^32 - 2: no carry out
+        "add.cc.u32 r1, r1, v0;\n\t"
+        "addc.cc.u32 r2, r2, v1;\n\t"
+        "addc.u32 r3, r3, 0;\n\t"
+        "mov.b64 %0, {q0, r1};\n\t"
+        "mov.b64 %1, {r2, r3};\n\t"
+        "}"
+        : "=l"(lo), "=l"(hi)
+        : "l"(a), "l"(b));
+    return {lo, hi};
 }
 
-// The external linear layer (p2::external_linear) on lane i's word x: row k
-// of M4 over its half is sum + s_k + 2 s_(k+1) = 2x + 3a + b + c with a, b,
-// c the words k + 1, k + 2, k + 3 of the half (7 terms); the output is twice
-// the own row plus the other half's (21 terms), folded once. The sums are
-// the same integers as p2's, so the lanes equal its lazy values.
-__device__ __forceinline__ u64 external_linear(u64 x, int i) {
+__device__ __forceinline__ gl::u128 sqr_wide(u64 a) {
+    u64 lo, hi;
+    asm("{\n\t"
+        ".reg .u32 a0, a1, q0, q1, u0, u1, w0, w1, r1, r2, r3;\n\t"
+        ".reg .u64 p00, p01, p11;\n\t"
+        "mov.b64 {a0, a1}, %2;\n\t"
+        "mul.wide.u32 p00, a0, a0;\n\t"
+        "mul.wide.u32 p01, a0, a1;\n\t"
+        "mul.wide.u32 p11, a1, a1;\n\t"
+        "mov.b64 {q0, q1}, p00;\n\t"
+        "mov.b64 {u0, u1}, p01;\n\t"
+        "mov.b64 {w0, w1}, p11;\n\t"
+        "add.cc.u32 r1, q1, u0;\n\t"
+        "addc.cc.u32 r2, u1, w0;\n\t"
+        "addc.u32 r3, w1, 0;\n\t"
+        "add.cc.u32 r1, r1, u0;\n\t"
+        "addc.cc.u32 r2, r2, u1;\n\t"
+        "addc.u32 r3, r3, 0;\n\t"
+        "mov.b64 %0, {q0, r1};\n\t"
+        "mov.b64 %1, {r2, r3};\n\t"
+        "}"
+        : "=l"(lo), "=l"(hi)
+        : "l"(a));
+    return {lo, hi};
+}
+
+// a b + c: c's words open the first carry chain.
+__device__ __forceinline__ gl::u128 mul_add_wide(u64 a, u64 b, u64 c) {
+    u64 lo, hi;
+    asm("{\n\t"
+        ".reg .u32 a0, a1, b0, b1, c0, c1, q0, q1, u0, u1, v0, v1, w0, w1, r0, r1, r2, r3;\n\t"
+        ".reg .u64 p00, p01, p10, p11;\n\t"
+        "mov.b64 {a0, a1}, %2;\n\t"
+        "mov.b64 {b0, b1}, %3;\n\t"
+        "mov.b64 {c0, c1}, %4;\n\t"
+        "mul.wide.u32 p00, a0, b0;\n\t"
+        "mul.wide.u32 p01, a0, b1;\n\t"
+        "mul.wide.u32 p10, a1, b0;\n\t"
+        "mul.wide.u32 p11, a1, b1;\n\t"
+        "mov.b64 {q0, q1}, p00;\n\t"
+        "mov.b64 {u0, u1}, p01;\n\t"
+        "mov.b64 {v0, v1}, p10;\n\t"
+        "mov.b64 {w0, w1}, p11;\n\t"
+        "add.cc.u32 r0, q0, c0;\n\t"
+        "addc.cc.u32 r1, q1, c1;\n\t"
+        "addc.cc.u32 r2, u1, w0;\n\t"
+        "addc.u32 r3, w1, 0;\n\t"
+        "add.cc.u32 r1, r1, u0;\n\t"
+        "addc.cc.u32 r2, r2, v1;\n\t"
+        "addc.u32 r3, r3, 0;\n\t"
+        "add.cc.u32 r1, r1, v0;\n\t"
+        "addc.cc.u32 r2, r2, 0;\n\t"
+        "addc.u32 r3, r3, 0;\n\t"
+        "mov.b64 %0, {r0, r1};\n\t"
+        "mov.b64 %1, {r2, r3};\n\t"
+        "}"
+        : "=l"(lo), "=l"(hi)
+        : "l"(a), "l"(b), "l"(c));
+    return {lo, hi};
+}
+
+__device__ __forceinline__ u64 mul(u64 a, u64 b) { return gl::reduce(mul_wide(a, b)); }
+
+__device__ __forceinline__ u64 sqr(u64 a) { return gl::reduce(sqr_wide(a)); }
+
+__device__ __forceinline__ u64 mul_add(u64 a, u64 b, u64 c) { return gl::reduce(mul_add_wide(a, b, c)); }
+
+// x^7 (p2::sbox) in lanes l and l ^ 8, which hold the same x: x^2, then
+// x^3 in the one and x^4 in the other (one product's issue, not two),
+// exchanged by a shuffle, then their product, the same in both.
+__device__ __forceinline__ u64 sbox(u64 x) {
+    const u64 x2 = sqr(x);
+    const u64 t = mul(x2, (threadIdx.x & 8) ? x2 : x);
+    return mul(t, (u64)__shfl_xor_sync(FULL, (unsigned long long)t, 8));
+}
+
+// The external linear layer (p2::external_linear) on lane i's word x, plus
+// c (< p: the next round's constant of the lane, or 0): row k of M4 over
+// its half is sum + s_k + 2 s_(k+1) = 2x + 3a + b + d with a, b, d the
+// words k + 1, k + 2, k + 3 of the half (7 terms); the output is twice the
+// own row plus the other half's and c (22 terms), folded once.
+__device__ __forceinline__ u64 external_linear(u64 x, int i, u64 c) {
     const int g = i & 4, k = i & 3;
     const u64 a = shfl8(x, g | ((k + 1) & 3));
     const u64 b = shfl8(x, g | ((k + 2) & 3));
-    const u64 c = shfl8(x, g | ((k + 3) & 3));
+    const u64 d = shfl8(x, g | ((k + 3) & 3));
     const gl::wide xa = gl::wadd(x, a);
-    const gl::wide n = gl::wadd(gl::wadd(xa, xa), gl::wadd(gl::wadd(b, c), a));
-    return gl::fold(gl::wadd(gl::wadd(n, n), shfl8_xor(n, 4)));
+    const gl::wide n = gl::wadd(gl::wadd(xa, xa), gl::wadd(gl::wadd(b, d), a));
+    return gl::fold(gl::wadd(gl::wadd(gl::wadd(n, n), c), shfl8_xor(n, 4)));
 }
 
-// The 22 internal rounds (p2::internal_round) on lane i's word: lane 0
-// takes the S-box, every lane adds the sum of all eight to its word times
-// its diagonal entry. The sum of lanes 1..7 is a shuffle reduction that runs
-// beside lane 0's S-box; the next round's constant is loaded during this one.
-__device__ __forceinline__ u64 internal_rounds(u64 x, int i, u64 diag) {
-    u64 rc = INT_RC[0];
+// Four external rounds on x (the S-box input, its constant added), each
+// adding the next round's constant to its output: c1, then c2, c3, c4. The
+// constants move down a register a round, so the rolled loop needs no
+// comparison to pick one.
+__device__ __forceinline__ u64 external_rounds(u64 x, int i, u64 c1, u64 c2, u64 c3, u64 c4) {
 #pragma unroll 1
-    for (int r = 0; r < 22; r++) {
-        const u64 next = INT_RC[r < 21 ? r + 1 : r];
-        gl::wide w = {i == 0 ? 0 : x, 0};
-        w = gl::wadd(w, shfl8_xor(w, 1));
-        w = gl::wadd(w, shfl8_xor(w, 2));
-        w = gl::wadd(w, shfl8_xor(w, 4));
-        const u64 s0 = p2::sbox(gl::add_const(x, rc));
-        const u64 sum = gl::fold(gl::wadd(w, shfl8(s0, 0)));
-        x = gl::mul_add(i == 0 ? s0 : x, diag, sum);
-        rc = next;
+    for (int r = 0; r < 4; r++) {
+        x = external_linear(sbox(x), i, c1);
+        c1 = c2;
+        c2 = c3;
+        c3 = c4;
     }
     return x;
 }
 
-// p2::permute on lane i's word (lazy in, lazy out).
+// The sum over the 8 lanes of a segment, in every lane.
+__device__ __forceinline__ gl::wide sum8(gl::wide w) {
+    w = gl::wadd(w, shfl8_xor(w, 1));
+    w = gl::wadd(w, shfl8_xor(w, 2));
+    return gl::wadd(w, shfl8_xor(w, 4));
+}
+
+// One internal round (p2::internal_round). Every lane carries y, a copy of
+// word 0 plus the round's constant, and its own word x (lane 0's unused):
+//   S = x_1 + ... + x_7 (a shuffle reduction, beside the S-box),
+//   s0 = y^7,  sum = s0 + S,  y' = s0 (d0 + 1) + S + next,  x' = x d + sum,
+// since word 0 becomes s0 d0 + sum. Only the S-box and y's multiply-add
+// are on the chain.
+__device__ __forceinline__ void internal_round(u64& y, u64& x, int i, u64 diag, u64 d0p1, u64 next) {
+    const u64 s = gl::fold(sum8({i == 0 ? 0 : x, 0}));
+    const u64 s0 = sbox(y);
+    const u64 sum = gl::fold(gl::wadd(s0, s));
+    y = mul_add(s0, d0p1, gl::add_const(s, next));
+    x = mul_add(x, diag, sum);
+}
+
+// The 22 internal rounds on lane i's word x, lane 0's holding x0 +
+// INT_RC[0]; returns the lane's word plus out_rc (< p: the first terminal
+// round's constant of the lane). Two rounds a loop step, so that one
+// round's reduction and multiply-add can be scheduled beside the next
+// round's S-box.
+__device__ __forceinline__ u64 internal_rounds(u64 x, int i, u64 diag, u64 out_rc) {
+    const u64 d0p1 = DIAG[0] + 1;  // DIAG[0] < p - 1
+    u64 y = shfl8(x, 0);
+#pragma unroll 1
+    for (int r = 0; r < 22; r += 2) {
+        internal_round(y, x, i, diag, d0p1, INT_RC[r + 1]);
+        internal_round(y, x, i, diag, d0p1, r < 20 ? INT_RC[r + 2] : out_rc);
+    }
+    return i == 0 ? y : gl::add_const(x, out_rc);
+}
+
+// p2::permute on lane i's word (lazy in, lazy out; not p2's lazy values).
+// Each round's constant is added by the layer before it: the first initial
+// one by the first external layer, INT_RC[0] (lane 0) by the last initial
+// round, the first terminal one by the internal rounds.
 __device__ __forceinline__ u64 permute(u64 x, int i, const Consts& c) {
-    x = external_linear(x, i);
-#pragma unroll 1
-    for (int r = 0; r < 4; r++) x = external_linear(p2::sbox(gl::add_const(x, pick(c.init_rc, r))), i);
-    x = internal_rounds(x, i, c.diag);
-#pragma unroll 1
-    for (int r = 0; r < 4; r++) x = external_linear(p2::sbox(gl::add_const(x, pick(c.term_rc, r))), i);
-    return x;
+    x = external_linear(x, i, c.init_rc[0]);
+    x = external_rounds(x, i, c.init_rc[1], c.init_rc[2], c.init_rc[3], i == 0 ? INT_RC[0] : 0);
+    x = internal_rounds(x, i, c.diag, c.term_rc[0]);
+    return external_rounds(x, i, c.term_rc[1], c.term_rc[2], c.term_rc[3], 0);
 }
 
 // Every lane of the warp: the state from device memory, the constants into
@@ -180,6 +337,30 @@ __device__ __forceinline__ void sample_ext(State& st, u64& a0, u64& a1) {
         if (q == 0) a0 = v;
         else a1 = v;
     }
+}
+
+// `count` (1-32) observes of the warp's words (lane w holding word w), then
+// sample_ext: the same state and challenge, with one duplex a full buffer
+// and no step a word, through one permutation site. A pass fills the input
+// buffer from ilen with the next words and duplexes: for the words to come
+// when the buffer is full (a pending full buffer too, with nothing taken),
+// for the squeeze after the last words.
+__device__ __forceinline__ void absorb_and_sample_ext(State& st, u64 mine, int count, u64& a0, u64& a1) {
+    const int i = word();
+    int done = 0;
+#pragma unroll 1
+    for (;;) {
+        const int take = min(RATE - st.ilen, count - done);
+        const u64 v = shfl(mine, (done + i - st.ilen) & 31);
+        if (i >= st.ilen && i < st.ilen + take) st.ibuf = v;
+        st.ilen += take;
+        done += take;
+        duplex(st);
+        if (done == count) break;
+    }
+    st.olen = RATE - 2;
+    a0 = shfl8(st.obuf, RATE - 1);
+    a1 = shfl8(st.obuf, RATE - 2);
 }
 
 // Called by the whole warp: runs a pending duplex, then the first segment

@@ -155,6 +155,8 @@ def finish_cuda(partials, blocks: int, rnd: int, n: int, msgs, chals, state, deg
     """finish_kernel: message `rnd` from the partials into msgs (2, n,
     degree + 1), absorbed; its challenge into chals (2, n)."""
     _check(degree, state.device)
+    if partials.data_ptr() % 16:
+        raise ValueError("the finish kernel reads the partials in 16-byte words: align them to 16 bytes")
     lib = _lib()
     with torch.cuda.device(state.device):
         err = lib.dp_sumcheck_finish(

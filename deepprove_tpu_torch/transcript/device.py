@@ -218,16 +218,22 @@ def sponge(state: torch.Tensor, pre=(), arr=None, labels=(), k: int = 0) -> GF2:
     return sponge_cuda(state, pre, arr, labels, k)
 
 
-def mul_chain(x: torch.Tensor, iters: int) -> None:
-    """x[0] <- x[0] * x[1]^iters on the card by one thread's chain of
-    dependent multiplies (`csrc/transcript.cu`): timed, the latency of one
-    Goldilocks multiply, from which the sponge's bound is reckoned."""
+def mul_chain(x: torch.Tensor, iters: int, order: int = 0) -> None:
+    """x[0] <- a chain of `iters` dependent products on x[0] on the card, in
+    one thread (`csrc/transcript.cu`): timed, the latency of one dependent
+    product. order 0: x[0] * x[1]^iters by Goldilocks multiplies; order 1:
+    a permutation's chain in its order, 112 products a permutation (each
+    S-box v <- v^2 x[1]^2, each internal round's then v <- v x[1] + x[1]),
+    from which the sponge-running kernels' bounds are reckoned; `iters` a
+    multiple of 112."""
     if x.device.type != "cuda" or x.dtype != torch.int64 or x.shape != (2,):
         raise ValueError("mul_chain takes a (2,) int64 CUDA tensor")
+    if order not in (0, 1) or (order == 1 and iters % 112):
+        raise ValueError("mul_chain: order 0, or order 1 with iters a multiple of 112")
     lib = _lib()
     fn = lib.dp_mul_chain
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), iters, torch.cuda.current_stream().cuda_stream)
+        err = fn(x.data_ptr(), iters, order, torch.cuda.current_stream().cuda_stream)
     kernels.check(err, "multiply chain launch")

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Measurements behind the sponge's and the sumcheck tail's designs,
+"""Measurements behind the sponge's and the sumcheck kernels' designs,
 timed on a GPU.
 
     python3 scripts/tail_designs.py
@@ -10,17 +10,29 @@ call and prints one JSON line for each part, each with the card's name
 and power limit:
   1. `permutation_layouts`: PERMS permutations in turn in one launch, by
      one warp with a state word a lane (the sponge's layout,
-     transcript.cuh) and by one thread holding all 8 words (the Merkle
-     kernel's, poseidon2.cuh); both against the host permutation, bit for
+     transcript.cuh), by one thread holding all 8 words (the Merkle
+     kernel's, poseidon2.cuh), by one warp in the design before the
+     finish kernel's redesign, with and without its internal rounds'
+     broadcast shuffle, and by the library's layout with its external
+     layer gathered in one level of shuffles (the .cu's namespace
+     `gather`); each permutation against the host permutation, bit for
      bit; the time a permutation beside its latency bound (112 dependent
-     multiplies, the multiply's latency measured by `mul_chain`);
-  2. `tail_share`: the library's tail at chip_smoke.py's timed shape (the
+     products at chip_smoke.py `product_latencies`' chain_product_ns,
+     reported beside its mul_latency_ns);
+  2. `finish_share`: the finish kernel at chip_smoke.py's timed shape
+     (FINISH_PARTIALS partials of degree 2, and of degree 5) beside its
+     partial sum alone and its sponge call alone, for the library's design
+     and for the design before it, an empty kernel of one block (the time
+     every launch pays), and the library's kernel on 0 and 256 partials;
+     every part's outputs equal across the designs and the sums equal the
+     host's;
+  3. `tail_share`: the library's tail at chip_smoke.py's timed shape (the
      batch opening's last 10 rounds: 126 rows of 2^11, 63 products of
      degree 2) and at its last fused.TAIL_LOG rounds when that differs,
      beside the same rounds' sponge calls alone (one warp, as the tail
      runs them) and the same rounds' grid barriers alone (3 a round): what
      the tail spends besides them is its passes;
-  3. `barriers`: 3 x ROUNDS barriers in one launch (the tail's 3 a round),
+  4. `barriers`: 3 x ROUNDS barriers in one launch (the tail's 3 a round),
      for a cluster of 16 and of 8 blocks and for the cooperative grid: the
      barrier's cost a round.
 Needs a CUDA device.
@@ -45,6 +57,7 @@ SRC = os.path.join(ROOT, "scripts", "tail_designs.cu")
 PERMS = 600  # permutations a launch
 ROUNDS = 1000  # barrier rounds a launch
 REPEATS = 20  # launches a timing
+FINISH_PARTIALS = 1024  # the finish kernel's timed shape: the batch opening's folding round
 
 
 def build() -> ctypes.CDLL:
@@ -61,7 +74,8 @@ def build() -> ctypes.CDLL:
     lib.dp_design_permute.argtypes = [i, p, i, p]
     lib.dp_design_barrier.argtypes = [i, i, i, p, ip]
     lib.dp_design_sponge_chain.argtypes = [p, i, p, p, p]
-    for fn in (lib.dp_design_permute, lib.dp_design_barrier, lib.dp_design_sponge_chain):
+    lib.dp_design_finish.argtypes = [i, i, i, p, ctypes.c_longlong, p, p, p, p, p]
+    for fn in (lib.dp_design_permute, lib.dp_design_barrier, lib.dp_design_sponge_chain, lib.dp_design_finish):
         fn.restype = ctypes.c_int
     return lib
 
@@ -103,17 +117,80 @@ def permutation_layouts(lib, cs) -> dict:
         want[12], want[13:], want[17] = 0, 0, 0
         devt.sponge_plain(want, k=1)
     out = {}
-    mul_ns = cs.mul_latency_ns()
-    for layout, name in ((0, "warp"), (1, "thread")):
+    lat = cs.product_latencies()
+    layouts = [(0, "warp"), (1, "thread"), (2, "warp_before"), (3, "warp_before_no_broadcast"),
+               (4, "gather_external")]
+    for layout, name in layouts:
         st = entry.to("cuda")
         check(lib.dp_design_permute(layout, st.data_ptr(), PERMS, stream()), name)
         torch.cuda.synchronize()
         mismatches = int((st.cpu()[:8] != want[:8]).sum())
         ms = events_ms(lambda: lib.dp_design_permute(layout, st.data_ptr(), PERMS, stream()))
-        out[name] = {"us_per_permutation": ms * 1e3 / PERMS, "mismatches": mismatches}
-    return {"part": "permutation_layouts", "permutations_per_launch": PERMS, "mul_latency_ns": mul_ns,
-            "bound_us_per_permutation": 112 * mul_ns * 1e-3, **out,
+        out[name] = {"us_per_permutation": ms * 1e3 / PERMS}
+        if layout != 3:  # that one leaves the broadcast out: its values are not the permutation's
+            out[name]["mismatches"] = mismatches
+    return {"part": "permutation_layouts", "permutations_per_launch": PERMS, **lat,
+            "bound_us_per_permutation": 112 * lat["chain_product_ns"] * 1e-3, **out,
             "card": cs.nvidia_smi("name,power.limit")}
+
+
+def finish_share(lib, cs, degree: int) -> dict:
+    """The finish kernel and its parts at FINISH_PARTIALS random partials,
+    device times from the profiler's records: the library's kernel (through
+    its wrapper) and the design before it, each beside its partial sum alone
+    and its sponge call alone (on the first partial row's words); an empty
+    kernel of one block; the library's kernel on fewer partials."""
+    from deepprove_tpu_torch.fields import host
+    from deepprove_tpu_torch.sumcheck import fused
+    from deepprove_tpu_torch.transcript import BasicTranscript
+    from deepprove_tpu_torch.transcript.session import DeviceTranscript
+
+    V = 2 * (degree + 1)
+    rng = np.random.default_rng(9)
+    words = rng.integers(0, host.P, size=(FINISH_PARTIALS, V), dtype=np.uint64)
+    partials = torch.from_numpy(words.reshape(-1).view(np.int64)).to("cuda")
+    want_sum = [int(sum(int(v) for v in words[:, k]) % host.P) for k in range(V)]
+    entry = DeviceTranscript.from_host(BasicTranscript(b"designs"), "cuda").state
+
+    def run(before: int, part: int):
+        """(launch, outputs) of one part on a fresh copy of the entry state."""
+        st = entry.clone()
+        msgs = torch.zeros((2, 1, degree + 1), dtype=torch.int64, device="cuda")
+        chals = torch.zeros((2, 1), dtype=torch.int64, device="cuda")
+        out = torch.zeros(V, dtype=torch.int64, device="cuda")
+        if before or part:
+            launch = lambda: check(lib.dp_design_finish(before, part, degree, partials.data_ptr(), FINISH_PARTIALS,
+                                                        msgs.data_ptr(), chals.data_ptr(), st.data_ptr(),
+                                                        out.data_ptr(), stream()), "finish part")
+        else:
+            launch = lambda: fused.finish_cuda(partials, FINISH_PARTIALS, 0, 1, msgs, chals, st, degree)
+        launch()
+        torch.cuda.synchronize()
+        outputs = (st.cpu().clone(), msgs.cpu().clone(), chals.cpu().clone(), out.cpu().clone())
+        return launch, outputs
+
+    result, outs = {}, {}
+    kernel_names = {0: "finish_kernel", 1: "sum_kernel", 2: "sponge_call_kernel"}
+    for before, design in ((0, "library"), (1, "before")):
+        times = {}
+        for label, part in (("whole", 0), ("partial_sum_alone", 1), ("sponge_call_alone", 2)):
+            launch, outs[design, part] = run(before, part)
+            times[f"{label}_us"] = cs.device_ms(launch, 50, kernel_names[part]) * 1e3
+        times["whole_less_parts_us"] = (times["whole_us"] - times["partial_sum_alone_us"]
+                                        - times["sponge_call_alone_us"])
+        result[design] = times
+    result["empty_kernel_us"] = cs.device_ms(run(0, 3)[0], 50, "empty_kernel") * 1e3
+    for nb in (0, 256):  # the library's kernel with fewer partials: the sum's share by its loads
+        st = entry.clone()
+        msgs = torch.zeros((2, 1, degree + 1), dtype=torch.int64, device="cuda")
+        chals = torch.zeros((2, 1), dtype=torch.int64, device="cuda")
+        result[f"library_whole_at_{nb}_partials_us"] = cs.device_ms(
+            lambda: fused.finish_cuda(partials, nb, 0, 1, msgs, chals, st, degree), 50, "finish_kernel") * 1e3
+    sums_ok = all([int(v) for v in outs[d, 1][3].numpy().view(np.uint64)] == want_sum for d in ("library", "before"))
+    same = all(all(torch.equal(a, b) for a, b in zip(outs["library", p], outs["before", p])) for p in (0, 2))
+    return {"part": "finish_share", "degree": degree, "partials": FINISH_PARTIALS,
+            "permutations": cs.sponge_permutations(V + 2, 2), **result,
+            "sums_equal_host": sums_ok, "designs_agree": same, "card": cs.nvidia_smi("name,power.limit")}
 
 
 def grid_barriers_ms(lib, rounds: int) -> float:
@@ -178,6 +255,8 @@ def main() -> int:
 
     lib = build()
     print(json.dumps(permutation_layouts(lib, cs)), flush=True)
+    for degree in (2, 5):
+        print(json.dumps(finish_share(lib, cs, degree)), flush=True)
     for rounds in sorted({cs.TIMED_TAIL_ROUNDS, fused.TAIL_LOG}):
         print(json.dumps(tail_share(lib, cs, rounds)), flush=True)
     print(json.dumps(barriers(lib, cs)), flush=True)

@@ -177,12 +177,39 @@ def test_cuda_sponge_matches_plain(cuda_device, ilen, olen):
         assert torch.equal(dev.cpu(), cpu), case
 
 
+@pytest.mark.cuda
+def test_cuda_permutation_matches_host_on_random_states(cuda_device):
+    """The warp permutation, reached through sponge_kernel (a state with
+    nothing queued and no output permutes once on its first squeeze),
+    against the host permutation on 128 random states, the edge values and
+    random mixes of them: the challenge and every state word bit for bit."""
+    from deepprove_tpu_torch.transcript import device as devt
+
+    rng = np.random.default_rng(50)
+    states = [rng.integers(0, gf.P, size=8, dtype=np.uint64) for _ in range(128)]
+    states += [np.full(8, v, dtype=np.uint64) for v in EDGE] + [rng.choice(EDGE, size=8) for _ in range(16)]
+    for words in states:
+        cpu = torch.zeros(devt.STATE_WORDS, dtype=torch.int64)
+        cpu[:8] = torch.from_numpy(words.view(np.int64))
+        dev = cpu.to(cuda_device)
+        before = devt.LAUNCHES
+        got = devt.sponge(dev, k=1)
+        assert devt.LAUNCHES == before + 1
+        want = devt.sponge_plain(cpu, k=1)
+        assert torch.equal(got.a0.cpu(), want.a0) and torch.equal(got.a1.cpu(), want.a1), words
+        assert torch.equal(dev.cpu(), cpu), words
+
+
 # (num_vars, rows, products, degree, tail start): five rows at 7 variables
-# for each degree, with the tail from round 0 and from round 4; then the
-# edge shapes of torch_reference.SUMCHECK_EDGE_CASES
+# for each degree, with the tail from round 0 and from round 4; rows of 2^19
+# with the tail from 10, whose first finish sums 1024 partials (more than
+# the kernel's threads, at the main path's degree 2 and the maxpool's 5);
+# then the edge shapes of torch_reference.SUMCHECK_EDGE_CASES
 _SUMCHECK_CASES = {
     f"n7_degree_{d}_tail_{t}": (7, 5, [list(range(d)), [4]], d, t) for t in (10, 3) for d in range(1, 6)
 }
+_SUMCHECK_CASES["n19_two_rows_degree_2_tail_10"] = (19, 2, [[0, 1], [1]], 2, 10)
+_SUMCHECK_CASES["n19_one_row_degree_5_tail_10"] = (19, 1, [[0, 0, 0, 0, 0], [0]], 5, 10)
 _SUMCHECK_CASES.update(R.SUMCHECK_EDGE_CASES)
 
 
