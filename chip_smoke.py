@@ -33,7 +33,12 @@ Phases, each printing one JSON line:
                round above the tail), then the kernels' edge shapes
                (tests/torch_reference.py SUMCHECK_EDGE_CASES: one row, 600
                products, degrees 1-5, a tail from round 0, one variable,
-               37 rows, a tail of one round).
+               37 rows, a tail of one round), and the transformer's shapes:
+               LayerNorm's io sumcheck (degree 4) and its linking
+               sumcheck, whose products list one MLE twice (eq x x), at
+               GPT-2's 2^16 entries and at 2^12 with rounds above the tail,
+               and MatMul's degree-2 sumcheck at 2^12 (the down projection's
+               contracted axis).
   3. slice   - the Dense-only chain [4, 1024, 1024, 3] at the reference's
                parameters (200 queries, rate 1/2, basecode 2^7):
                Model.run -> Context.generate -> Prover.prove -> verify on
@@ -56,12 +61,32 @@ Phases, each printing one JSON line:
                inputs)`, the first input proved as bench.py's bench_cnn
                does, driven and measured as the slice is; the output must
                equal a numpy evaluation of the quantized model.
-  6. reference - the Dense chain [16, 32, 8], the Dense -> Requant ->
-               ReLU chain [4, 16, 16, 3] and the three small CNNs of the CPU
+  6. gpt2_ffn - GPT-2 (vocab 50257, context 1024, 12 blocks calibrated,
+               head width 64; synthetic weights from seed 0; seq 64, a
+               32-token prompt from default_rng(0), as bench.py's
+               bench_gpt2) at width 128 (2 heads) from the graph's
+               Positional node through the feed-forward halves of blocks 0
+               and 1 (LayerNorm, MatMul 128 -> 512 -> 128 with biases, GELU,
+               the residual Adds whose wires fan out), scales from the float
+               calibration; the model input is the Embeddings node's output,
+               computed on the host. Driven and measured as the slice is;
+               the output must equal a numpy evaluation of the same
+               quantized graph. The width is cut from GPT-2-124M's 768:
+               there the Requants' clamping tables reach 2^26 and 2^28
+               rows (scripts/gpt2_requant_widths.py), which the batch
+               opening (every claim tiled to the largest polynomial)
+               cannot hold on the card.
+  7. reference - the Dense chain [16, 32, 8], the Dense -> Requant ->
+               ReLU chain [4, 16, 16, 3], the three small CNNs of the CPU
                tests (conv -> requant -> maxpool -> flatten -> dense, a
-               stride-2 conv, a tiny LeNet) proved on the card must equal
-               the JAX package's proofs frozen in tests/torch_reference.json.
-  7. kernel_times - the sponge and sumcheck kernels' device times (from the
+               stride-2 conv, a tiny LeNet), the five residual cases (a
+               fanned-out residual, an add of two branches, Pad2D alone and
+               before a conv, a quantized residual float DAG) and the four
+               transformer cases (a matmul of two witnesses, embeddings ->
+               positional, dense -> requant -> gelu, LayerNorm) proved on
+               the card must equal the JAX package's proofs frozen in
+               tests/torch_reference.json, the fan-out merges included.
+  8. kernel_times - the sponge and sumcheck kernels' device times (from the
                profiler's records, after the paths: the profiler's
                instrumentation slows the rest of a process), their plain
                versions' times and their bounds: bytes for the round
@@ -504,8 +529,11 @@ def sumcheck_cases() -> dict:
     tail from 10, so that two rounds run above it; the batch opening of
     Dense-4M: 63 claims at 2^20 entries, eq and poly rows a claim; the
     maxpool zerocheck (degree 5) of the LeNet's first pool, and the same at
-    12 variables with the tail from 10, whose second round folds above it. Each path's stacked sumcheck with the most
-    rows is checked besides, at the shape the path gave it (`drive`)."""
+    12 variables with the tail from 10, whose second round folds above it;
+    LayerNorm's io (degree 4) and linking (a factor listed twice) sumchecks
+    at GPT-2's 64 x 1024 = 2^16 entries and at 2^12 with the tail from 10;
+    MatMul's at 2^12. Each path's stacked sumcheck with the most rows is
+    checked besides, at the shape the path gave it (`drive`)."""
     import torch_reference as R
 
     inst = 8
@@ -513,12 +541,22 @@ def sumcheck_cases() -> dict:
     wide = 39
     generic = [p for r in range(1, 4 * wide, 4) for p in ([0, r, r + 1], [0, r + 2, r + 3], [0, r + 3, r + 1])]
     maxpool = [[0, 1, 2, 3, 4]] + [[k, 4] for k in range(4)] + [[5, 6]]
+    # LayerNorm (zkml/layers/layernorm.py): the io sumcheck's rows [eq,
+    # gamma, X, V, S, beta], the linking sumcheck's [eq, X, S] with X and S
+    # each twice in a product
+    ln_io = [[0, 1, 2, 3], [0, 1, 4, 3], [0, 5]]
+    ln_link = [[0, 1, 1], [0, 2, 2]]
     return {
         "logup_level_2^13": (12, 1 + 2 * inst, logup, 3),
         "logup_level_39_instances": (12, 1 + 4 * wide, generic, 3, 10),
         "batch_open_2^20": (20, 126, [[2 * c, 2 * c + 1] for c in range(63)], 2),
         "maxpool_zerocheck": (11, 7, maxpool, 5),
         "maxpool_zerocheck_2^12": (12, 7, maxpool, 5, 10),
+        "layernorm_io_2^16": (16, 6, ln_io, 4),
+        "layernorm_link_2^16": (16, 3, ln_link, 3),
+        "layernorm_io_2^12": (12, 6, ln_io, 4, 10),
+        "layernorm_link_2^12": (12, 3, ln_link, 3, 10),
+        "matmul_2^12": (12, 2, [[0, 1]], 2),
         **R.SUMCHECK_EDGE_CASES,
     }
 
@@ -899,6 +937,42 @@ def phase_cnn():
     return result
 
 
+def gpt2_ffn_model(cfg=None):
+    """(model on the card, model input, prompt) of phase gpt2_ffn: GPT-2 at
+    `cfg` (tests/torch_reference.py GPT2_FFN_CHIP by default) from the
+    graph's Positional node through the feed-forward halves of blocks 0 and
+    1 (`gpt2_ffn_graph`), the prompt and scales of bench.py's bench_gpt2."""
+    import torch_reference as R
+
+    from deepprove_tpu_torch.zkml import llm
+    from deepprove_tpu_torch.zkml import model as model_mod
+    from deepprove_tpu_torch.zkml.layers.embeddings import Positional
+
+    cfg, seq = cfg or R.GPT2_FFN_CHIP, R.GPT2_124M_SEQ
+    prompt = np.random.default_rng(0).integers(0, cfg["vocab"], size=seq // 2).astype(np.int64)
+    _, model, x_np = R.gpt2_ffn_graph(llm, model_mod, Positional, cfg, seq, prompt,
+                                      table=lambda a: torch.from_numpy(a).to(DEVICE), device=DEVICE)
+    return model, x_np, prompt
+
+
+def phase_gpt2_ffn():
+    """The GPT-2 feed-forward path at width 128 (`gpt2_ffn_model`), its
+    output held against a numpy evaluation of the same quantized graph."""
+    import torch_reference as R
+
+    build_ms, (model, x_np, prompt) = wall_ms(gpt2_ffn_model)
+    want = R.numpy_eval_graph(R.graph_records(model), [x_np])
+    result = {
+        **drive("gpt2_ffn", model, x_np, want, PCS_KW, WARM_RUNS), "config": R.GPT2_FFN_CHIP,
+        "seq": R.GPT2_124M_SEQ, "prompt_tokens": int(prompt.size), "build_ms": build_ms,
+        "clamping_sizes": [model.nodes[n].op.spec.clamping_size() for n in model.forward_order()
+                           if hasattr(model.nodes[n].op, "spec")],
+        "layers": [type(model.nodes[n].op).__name__ for n in model.forward_order()],
+    }
+    emit(result)
+    return result
+
+
 def small_cnn(name):
     """One of the CPU tests' CNN cases as (model on the card, input)."""
     import torch_reference as R
@@ -912,9 +986,10 @@ def small_cnn(name):
 
 
 def phase_reference():
-    """The Dense chain, the Dense -> Requant -> ReLU chain and the small
-    CNNs of the CPU tests, proved on the card: each proof must equal the
-    JAX package's."""
+    """The Dense chain, the Dense -> Requant -> ReLU chain, the small CNNs
+    and the residual and transformer cases of the CPU tests, proved on the
+    card: each proof must equal the JAX package's (the graphs' with their
+    fan-out merges)."""
     import torch_reference as R
 
     from deepprove_tpu_torch.transcript import BasicTranscript
@@ -934,14 +1009,20 @@ def phase_reference():
     }
     for name in R.CNN_CASES:
         cases[f"cnn_{name}"] = (lambda name=name: small_cnn(name), R.CNN_KW, all_parts, ref["cnn"][name])
+    for part, names, kw in (("residual", R.RESIDUAL_CASES, R.RESIDUAL_KW),
+                            ("transformer", R.TRANSFORMER_CASES, R.TRANSFORMER_KW)):
+        for name in names:
+            cases[f"{part}_{name}"] = (lambda name=name: R.port_graph(R.graph_case(name), DEVICE), kw,
+                                       R.GRAPH_PROOF_PARTS, ref[part][name])
     equal = {}
     for name, (inputs, kw, parts, frozen) in cases.items():
         model, x_np = inputs()
-        x = Tensor(torch.from_numpy(x_np))
-        trace = model.run([x], DEVICE)
+        xs = [Tensor(torch.from_numpy(np.asarray(x, dtype=np.int64)))
+              for x in (x_np if isinstance(x_np, list) else [x_np])]
+        trace = model.run(xs, DEVICE)
         ctx = Context.generate(model, device=DEVICE, **kw)
         proof = Prover(ctx, BasicTranscript(b"m2vec"), device=DEVICE).prove(trace)
-        verify(ctx, proof, IO([x], trace.outputs), BasicTranscript(b"m2vec"), device=DEVICE)
+        verify(ctx, proof, IO(xs, trace.outputs), BasicTranscript(b"m2vec"), device=DEVICE)
         equal[name] = {p: R.plain(getattr(proof, p)) for p in parts} == frozen["proof"]
     ok = all(equal.values())
     emit({"phase": "reference", "ok": ok, "dims": {"dense": R.DENSE_DIMS, "mlp": R.MLP_DIMS},
@@ -971,7 +1052,8 @@ def main() -> int:
     k = phase_kernels(stats["threads_per_block"])
     seconds = {"build_and_kernels": time.perf_counter() - t0}
     paths = []
-    for name, phase in (("slice", phase_slice), ("mlp_4m", phase_mlp_4m), ("cnn", phase_cnn)):
+    for name, phase in (("slice", phase_slice), ("mlp_4m", phase_mlp_4m), ("cnn", phase_cnn),
+                        ("gpt2_ffn", phase_gpt2_ffn)):
         t1 = time.perf_counter()
         paths.append(phase())
         seconds[name] = time.perf_counter() - t1
@@ -982,8 +1064,8 @@ def main() -> int:
     times = phase_kernel_times()
     seconds["kernel_times"] = time.perf_counter() - t1
     emit({"phase": "elapsed", "seconds": seconds, "total_s": time.perf_counter() - t0})
-    cnn = paths[-1]  # the main path: the kernels line's `launches` are its
     by_path = {p["phase"]: p["launches_by_kernel"] for p in paths}
+    cnn = by_path["cnn"]  # the main path: the kernels line's `launches` are its
     # the sumcheck kernels' largest disagreement: the kernels phase's cases
     # and each path's own largest shape
     sc_err = max([k["sumcheck"]["max_abs_err"]]
@@ -1017,7 +1099,7 @@ def main() -> int:
         "route": "cuda",
         "source": f"deepprove_tpu_torch/csrc/{src}",
         "replaces": replaces,
-        "launches": sum(cnn["launches_by_kernel"][name]),
+        "launches": sum(cnn[name]),
         "launches_by_path": {path: by[name] for path, by in by_path.items()},
         "max_abs_err": err,
         "ms": t["kernel_ms"],

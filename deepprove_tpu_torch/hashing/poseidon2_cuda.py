@@ -5,9 +5,12 @@ plain torch version.
 columns = left children, odd = right) to its (4, M) parents. On a CUDA
 tensor it launches `csrc/poseidon2_compress.cu` (the port of the TPU
 kernel `_compress_kernel` in the JAX package's `poseidon2_pallas.py`) and
-raises if the kernel cannot run; on a CPU tensor it computes
-`compress_level_plain`, the same function in plain torch. No single
-PyTorch call computes Poseidon2.
+raises if the kernel cannot run; on a CPU tensor it computes the same
+function with the native host permutation (`native/poseidon2.c`, as the
+transcript's plain sponge does), since the plain torch version
+`compress_level_plain`, which the kernel is held against on the card,
+costs thousands of eager ops a level. No single PyTorch call computes
+Poseidon2.
 
 The kernel library is built with nvcc for sm_90a at first use into the
 package's build directory and bound with ctypes (`kernels.py`). It also carries
@@ -20,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .. import kernels
@@ -79,6 +83,15 @@ def compress_level_plain(digests: torch.Tensor) -> torch.Tensor:
     return torch.stack(poseidon2.compress_planes(left, right))
 
 
+def compress_level_host(digests: torch.Tensor) -> torch.Tensor:
+    """(4, 2M) -> (4, M) parents of a CPU level by the native host
+    permutation (canonical digests, as every Merkle level holds)."""
+    _check_level(digests)
+    level = digests.numpy().view(np.uint64)
+    out = poseidon2.compress_host(level[:, 0::2].T, level[:, 1::2].T).T
+    return torch.from_numpy(np.ascontiguousarray(out).view(np.int64))
+
+
 def compress_level_cuda(digests: torch.Tensor) -> torch.Tensor:
     """(4, 2M) -> (4, M) parents by the CUDA kernel (CUDA tensors only)."""
     global LAUNCHES
@@ -100,9 +113,10 @@ def compress_level_cuda(digests: torch.Tensor) -> torch.Tensor:
 
 
 def compress_level(digests: torch.Tensor) -> torch.Tensor:
-    """(4, 2M) -> (4, M): the kernel on a CUDA tensor, plain torch on the CPU."""
+    """(4, 2M) -> (4, M): the kernel on a CUDA tensor, the native host
+    permutation on the CPU."""
     if digests.device.type == "cpu":
-        return compress_level_plain(digests)
+        return compress_level_host(digests)
     return compress_level_cuda(digests)
 
 

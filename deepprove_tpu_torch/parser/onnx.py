@@ -4,8 +4,8 @@
 Reads the ModelProto directly off the protobuf wire (no onnx package is
 needed). Supported ops, the MLP/CNN set: Gemm, MatMul + Add, Relu, Conv
 (square kernel, pow2 stride, uniform padding), MaxPool (2x2/2), Flatten,
-Reshape. A padded Conv or a residual Add gives the FloatModel an `FPad` or
-`FAdd`, which the port does not quantize yet.
+Reshape. A padded Conv gives the FloatModel an `FPad` before its `FConv`,
+and an Add of two node outputs a residual `FAdd`.
 """
 
 from __future__ import annotations

@@ -26,8 +26,9 @@ ExtPair = tuple[int, int]
 class CommitmentContext:
     """Params + commitments for the model polys and committed table columns."""
 
-    def __init__(self, max_poly_len: int, model_polys, table_types=(), **pcs_kw):
-        """model_polys: {node_id: {poly_id: field tensor}} (little-endian)."""
+    def __init__(self, max_poly_len: int, model_polys, table_types=(), device="cpu", **pcs_kw):
+        """model_polys: {node_id: {poly_id: field tensor}} (little-endian) on
+        `device`, where the committed table columns are made too."""
         for polys in model_polys.values():
             for p in polys.values():
                 max_poly_len = max(max_poly_len, p.shape[0])
@@ -37,7 +38,7 @@ class CommitmentContext:
             for pid, poly in sorted(model_polys[node_id].items()):
                 keys.append((node_id, pid))
                 polys.append(poly)
-        table_cols = {tt: tt.committed_columns() for tt in sorted(table_types)}
+        table_cols = {tt: tt.committed_columns(device) for tt in sorted(table_types)}
         table_cols = {tt: cols for tt, cols in table_cols.items() if cols is not None}
         comms = iter(basefold.commit_many(self.params, polys + list(table_cols.values())))
         self.model_comms = {}

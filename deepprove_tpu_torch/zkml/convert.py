@@ -5,8 +5,11 @@
 `dense_chain_from_arrays` (Dense only) and `mlp_chain_from_arrays`
 (Dense -> Requant -> ReLU, as `bench.py`'s MLPs) build their records from
 (matrix, bias) int64 arrays, so that both packages prove the very same
-model. `float_model_from_ops` builds a FloatModel from
-[(kind, weight, bias, stride)] float arrays.
+model. `model_from_graph` builds a DAG of the port's layers, the
+residual and transformer ones among them, from [(kind, fields, edges)]
+records. `float_model_from_ops` builds a FloatModel from
+[(kind, weight, bias, stride)] float arrays, `float_model_from_graph` a
+DAG of float ops from [(kind, weight, bias, input ids)].
 """
 
 from __future__ import annotations
@@ -16,14 +19,19 @@ import torch
 
 from .. import device as device_mod
 from . import quantization as Q
-from .float_model import FConv, FDense, FFlatten, FloatModel, FMaxpool, FRelu
-from .layers.activation import Relu
+from .float_model import FAdd, FConv, FDense, FFlatten, FloatModel, FMaxpool, FRelu
+from .layers.activation import Gelu, Relu
+from .layers.add import Add
 from .layers.convolution import Convolution
 from .layers.dense import Dense
+from .layers.embeddings import Embeddings, Positional
+from .layers.layernorm import LayerNorm
+from .layers.matmul import MatMul
+from .layers.pad import Pad2D
 from .layers.pooling import Maxpool2D
 from .layers.requant import Requant
 from .layers.shape_ops import Flatten
-from .model import Model
+from .model import Edge, Model
 from .quantization import RequantSpec
 
 SPEC_FIELDS = ("right_shift", "fixed_point_multiplier", "fp_scale", "multiplier", "intermediate_bit_size")
@@ -66,6 +74,36 @@ def model_from_layers(layers, device="cuda") -> Model:
     return model
 
 
+def model_from_graph(nodes, num_inputs: int = 1, device="cuda") -> Model:
+    """A DAG of the port's layers from [(kind, fields, edges)] records, edges
+    [(producer position in `nodes` or None for a model input, wire)]:
+      dense: matrix, bias; add; pad: pad, input_shape; conv: filter, bias,
+      input_shape, stride; matmul: two witness inputs, or one and right,
+      bias (MatMul.new_constant); embeddings, positional:
+      table; requant: multiplier, bits (RequantSpec.from_multiplier); gelu:
+      s_in, s_out; layernorm: gamma_f, beta_f, eps, s_in (LayerNorm.from_float)."""
+    dev = device_mod.resolve(device)
+    make = {
+        "dense": lambda f: Dense(matrix=_tensor(f["matrix"], dev), bias=_tensor(f["bias"], dev)),
+        "add": lambda f: Add(),
+        "pad": lambda f: Pad2D(pad=f["pad"], input_shape=tuple(f["input_shape"])),
+        "conv": lambda f: Convolution(filter=_tensor(f["filter"], dev), bias=_tensor(f["bias"], dev),
+                                      input_shape=tuple(f["input_shape"]), stride=int(f["stride"])),
+        "matmul": lambda f: (MatMul.new_constant(_tensor(f["right"], dev), _tensor(f["bias"], dev))
+                             if "right" in f else MatMul()),
+        "embeddings": lambda f: Embeddings(table=_tensor(f["table"], dev)),
+        "positional": lambda f: Positional(table=_tensor(f["table"], dev)),
+        "requant": lambda f: Requant(spec=RequantSpec.from_multiplier(f["multiplier"], f["bits"])),
+        "gelu": lambda f: Gelu(s_in=f["s_in"], s_out=f["s_out"]),
+        "layernorm": lambda f: LayerNorm.from_float(f["gamma_f"], f["beta_f"], eps=f["eps"], s_in=f["s_in"],
+                                                    device=dev),
+    }
+    model = Model(num_inputs=num_inputs)
+    for kind, fields, edges in nodes:
+        model.add_node(make[kind](fields), [Edge(node=n, index=i) for n, i in edges])
+    return model
+
+
 def dense_chain_from_arrays(layers, device="cuda") -> Model:
     """[(matrix (rows, cols), bias (rows,)), ...] -> a chain of Dense nodes."""
     return model_from_layers([("dense", dict(matrix=m, bias=b)) for m, b in layers], device)
@@ -98,4 +136,17 @@ def float_model_from_ops(input_shape, ops) -> FloatModel:
             fm.add(FDense(weight=np.asarray(w, dtype=np.float64), bias=np.asarray(b, dtype=np.float64)))
         else:
             fm.add({"relu": FRelu, "maxpool": FMaxpool, "flatten": FFlatten}[kind]())
+    return fm
+
+
+def float_model_from_graph(input_shape, ops) -> FloatModel:
+    """A FloatModel DAG from [(kind, weight, bias, input ids)] (kind dense,
+    relu or add; input id -1 is the model input)."""
+    fm = FloatModel(input_shape=input_shape)
+    for kind, w, b, inputs in ops:
+        if kind == "dense":
+            op = FDense(weight=np.asarray(w, dtype=np.float64), bias=np.asarray(b, dtype=np.float64))
+        else:
+            op = {"relu": FRelu, "add": FAdd}[kind]()
+        fm.add_node(op, list(inputs))
     return fm

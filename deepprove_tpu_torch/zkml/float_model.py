@@ -1,16 +1,15 @@
 """Float models and their quantization, as in the JAX package's
 `zkml/float_model.py`.
 
-A `FloatModel` is a DAG of float ops (dense, conv, relu, maxpool,
-flatten) evaluated with numpy. `quantize` turns it into a provable
-quantized `Model`: weights are quantized per tensor, activations either
-assumed in [-1, 1] ("absolute_max") or from the spans observed on
+A `FloatModel` is a DAG of float ops (dense, conv, pad, relu, maxpool,
+flatten, residual add) evaluated with numpy. `quantize` turns it into a
+provable quantized `Model`: weights are quantized per tensor, activations
+either assumed in [-1, 1] ("absolute_max") or from the spans observed on
 calibration inputs ("inference"), and a Requant follows every dense and
-conv layer with the multiplier M = S_in S_w / S_out. The arithmetic is the
-JAX package's, in the same order, so both give the same integers.
-`FPad` and `FAdd` are the JAX package's padded-conv and residual ops; the
-port's `Pad2D` and `Add` layers arrive with a later slice (ROADMAP queue 1
-item 8), so quantizing them raises.
+conv layer with the multiplier M = S_in S_w / S_out. A residual `FAdd`
+requantizes both branches to its output scale, adds them, and renormalizes
+the sum into the Element range. The arithmetic is the JAX package's, in
+the same order, so both give the same integers.
 """
 
 from __future__ import annotations
@@ -21,17 +20,18 @@ import numpy as np
 import torch
 
 from .. import device as device_mod
+from . import quantization as Q
 from .layers.activation import Relu
+from .layers.add import Add
 from .layers.convolution import Convolution
 from .layers.dense import Dense
+from .layers.pad import Pad2D
 from .layers.pooling import Maxpool2D
 from .layers.requant import Requant
 from .layers.shape_ops import Flatten
 from .model import Edge, Model
 from .quantization import RequantSpec, ScalingFactor
 from .tensor import next_pow2
-
-_LATER = "the port's Pad2D and Add (with the fan-out merger) wait for a later slice (ROADMAP queue 1 item 8)"
 
 
 @dataclasses.dataclass
@@ -69,12 +69,16 @@ class FConv:
 
 @dataclasses.dataclass
 class FPad:
-    """Spatial zero-pad by `pad` on every edge."""
+    """Spatial zero-pad by `pad` on every edge (feeds padded convs)."""
 
     pad: int
 
     def forward(self, x):
-        raise NotImplementedError(f"FPad: {_LATER}")
+        c, n, _ = x.shape
+        n_out = next_pow2(n + 2 * self.pad)
+        out = np.zeros((next_pow2(c), n_out, n_out), dtype=np.float64)
+        out[:c, self.pad : self.pad + n, self.pad : self.pad + n] = x
+        return out
 
 
 @dataclasses.dataclass
@@ -101,7 +105,7 @@ class FAdd:
     """Element-wise residual add of two producer outputs."""
 
     def forward(self, a, b):
-        raise NotImplementedError(f"FAdd: {_LATER}")
+        return a + b
 
 
 class FloatModel:
@@ -193,10 +197,24 @@ def quantize(model: FloatModel, strategy: str = "absolute_max", calibration_inpu
 
     last = None
     for i, (op, inputs) in enumerate(model.ops):
-        if isinstance(op, (FPad, FAdd)):
-            raise NotImplementedError(f"{type(op).__name__}: {_LATER}")
+        if isinstance(op, FAdd):
+            s_out = out_scales[i]
+            branches = []
+            for b in inputs:
+                spec = RequantSpec.from_multiplier(scale_of(b).scale / s_out.scale, Q.BIT_LEN + 2)
+                branches.append(Edge(node=q.add_node(Requant(spec=spec), [edge_of(b)]), index=0))
+            nid = q.add_node(Add(), branches)
+            # renormalize the (BIT_LEN + 1)-bit sum into the Element range
+            half = ScalingFactor.from_absolute_max(2.0 * abs(s_out.max))
+            spec = RequantSpec.from_multiplier(s_out.scale / half.scale, Q.BIT_LEN + 2)
+            produced[i] = (q.add_node(Requant(spec=spec), [Edge(node=nid, index=0)]), half, shape_of(inputs[0]))
+            last = i
+            continue
         (src,) = inputs
-        if isinstance(op, (FDense, FConv)):
+        if isinstance(op, FPad):
+            pad = Pad2D(pad=op.pad, input_shape=shape_of(src))
+            produced[i] = (q.add_node(pad, [edge_of(src)]), scale_of(src), (pad.c, pad.n_out, pad.n_out))
+        elif isinstance(op, (FDense, FConv)):
             s_in = scale_of(src)
             s_w = ScalingFactor.from_tensor(op.weight)
             s_out = out_scales[i]

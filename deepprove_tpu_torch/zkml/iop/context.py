@@ -55,7 +55,7 @@ class Context:
             nid: {pid: p.to(dev) for pid, p in ps.items()}
             for nid, ps in aux.model_polys.items()
         }
-        commitment_ctx = CommitmentContext(next_pow2(max_len), polys, lookup, **pcs_kw)
+        commitment_ctx = CommitmentContext(next_pow2(max_len), polys, lookup, device=dev, **pcs_kw)
         return Context(model, steps_info, lookup, commitment_ctx, dev)
 
     def forward_order(self):

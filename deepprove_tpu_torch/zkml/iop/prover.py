@@ -4,8 +4,10 @@
 Flow: absorb the context; commit the lookup witnesses and multiplicities
 and derive the table challenges; prove every node's lookups in one logup
 proof per column size; derive output claims from Fiat-Shamir; walk the DAG
-backwards proving each node; prove the tables, one logup proof per table
-size; then emit one batched Basefold opening for every accumulated claim.
+backwards proving each node, merging the claims on an output wire that
+feeds several consumers (a residual) into one with a same-poly sumcheck;
+prove the tables, one logup proof per table size; then emit one batched
+Basefold opening for every accumulated claim.
 Claims and proof values stay on the device; the proof is lowered to host
 ints in one pull at the end.
 """
@@ -19,7 +21,7 @@ from ... import glue
 from ...lookup import logup
 from ...poly import mle as mle_mod
 from ...transcript.session import DeviceTranscript
-from ..commit import CommitmentProver
+from ..commit import CommitmentProver, same_poly_prove_device
 from ..lookup_context import generate_lookup_witnesses
 from ..model import InferenceTrace
 
@@ -51,7 +53,7 @@ class Proof:
     steps: dict  # NodeId -> layer proof
     table_proofs: list = dataclasses.field(default_factory=list)
     commit: dict = dataclasses.field(default_factory=dict)  # {"batch": ..., "trivial": [...]}
-    # fan-out claim merges: (node_id, wire) -> SamePolyProof (none in a chain)
+    # fan-out claim merges: (node_id, wire) -> SamePolyProof
     merges: dict = dataclasses.field(default_factory=dict)
     # the consolidated node-lookup proofs, by column size (ascending)
     shared_logup: list = dataclasses.field(default_factory=list)
@@ -160,9 +162,16 @@ class Prover:
 
         claims_by_layer: dict[int, list] = {}
         out_nodes = self.ctx.model.output_nodes()
+        merges = {}
+
+        def merger(nid, wire, cands):
+            poly = trace.steps[nid].outputs[wire].to_field()
+            merges[(nid, wire)] = same_poly_prove_device(poly, cands, self.dt)
+            return merges[(nid, wire)].extract_claim()
+
         for nid in self.ctx.backward_order():
             node_ctx = self.ctx.steps_info[nid]
-            claims = claims_for_node(self.ctx.model, nid, claims_by_layer, out_claims, out_nodes)
+            claims = claims_for_node(self.ctx.model, nid, claims_by_layer, out_claims, out_nodes, merger)
             if node_ctx.op.is_provable:
                 claims = node_ctx.op.prove(nid, node_ctx.ctx, claims, trace.steps[nid], self)
             claims_by_layer[nid] = claims
@@ -170,15 +179,17 @@ class Prover:
         table_proofs = self._prove_tables()
         proof = Proof(
             steps=self.proofs, table_proofs=table_proofs,
-            commit=self.commit_prover.prove(self.dt), shared_logup=shared_logup,
+            commit=self.commit_prover.prove(self.dt), merges=merges, shared_logup=shared_logup,
         )
         return self.dt.materialize(proof, self.transcript)
 
 
-def claims_for_node(model, nid, claims_by_layer, out_claims, out_nodes):
-    """One claim per output wire, from its consumer (or the model output).
-    A wire feeding several consumers needs same-poly merging of its claims,
-    which no chain needs and this slice of the port does not do."""
+def claims_for_node(model, nid, claims_by_layer, out_claims, out_nodes, merger):
+    """One claim per output wire: the model-output claim (wire 0 of an
+    output node), then each consumer's claim in (consumer id, slot) order.
+    Where a wire has several, `merger(nid, wire, claims)` merges them into
+    one (the same-poly sumcheck, at this node's place in the backward
+    order, keyed (node, wire))."""
     claims = []
     for w in range(model.num_outputs(nid)):
         cands = []
@@ -186,10 +197,6 @@ def claims_for_node(model, nid, claims_by_layer, out_claims, out_nodes):
             cands.append(out_claims[out_nodes.index(nid)])
         for cid, slot in model.consumers_of_wire(nid, w):
             cands.append(claims_by_layer[cid][slot])
-        if len(cands) != 1:
-            raise NotImplementedError(
-                f"node {nid} output {w} has {len(cands)} claims; fan-out needs "
-                "same-poly merging, not in this slice of the port"
-            )
-        claims.append(cands[0])
+        assert cands, f"no claims for node {nid} output {w}"
+        claims.append(cands[0] if len(cands) == 1 else merger(nid, w, cands))
     return claims

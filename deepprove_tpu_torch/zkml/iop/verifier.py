@@ -2,7 +2,8 @@
 
 Mirrors the prover's transcript: absorb the context, re-derive the table
 challenges, verify the consolidated lookup proofs (their layout taken from
-the context), derive output claims, verify each layer backwards, verify
+the context), derive output claims, verify each layer backwards (merging
+the claims of a wire with several consumers as the prover did), verify
 the table proofs and their column evaluations, check input claims against
 the model input MLEs, verify the batched commitment opening, and finally
 check that all lookup fractions sum to zero. Host code, apart from the
@@ -13,11 +14,13 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from ... import device as device_mod
 from ...fields import gf, host
 from ...lookup import logup
 from ...lookup.logup import Claim
-from ..commit import CommitmentVerifier
+from ..commit import CommitmentVerifier, same_poly_verify
 from ..lookup_context import ChallengeStorage
 from .prover import claims_for_node
 
@@ -29,12 +32,19 @@ class IO:
 
 
 class Verifier:
-    def __init__(self, ctx, transcript):
+    def __init__(self, ctx, transcript, io: IO | None = None):
         self.ctx = ctx
         self.transcript = transcript
         self.commit_verifier = CommitmentVerifier(ctx.commitment_ctx)
         self.challenge_storage = None
         self.shared_logup_claims = {}
+        self.io = io
+
+    def public_inputs_for(self, node_id) -> torch.Tensor:
+        """The public model input feeding this node (flat, on the host)."""
+        edge = self.ctx.steps_info[node_id].inputs[0]
+        assert edge.node is None, "node input is not a model input"
+        return self.io.inputs[edge.index].data.reshape(-1).cpu()
 
 
 def _host_field(t):
@@ -111,7 +121,7 @@ def _verify_tables(ctx, proof, v, transcript):
 def verify(ctx, proof, io: IO, transcript, device="cuda"):
     """Raises AssertionError if `proof` does not prove `io` under `ctx`."""
     dev = device_mod.resolve(device)
-    v = Verifier(ctx, transcript)
+    v = Verifier(ctx, transcript, io)
     ctx.write_to_transcript(transcript)
     if ctx.lookup:
         v.challenge_storage = ChallengeStorage.initialise(ctx.lookup, transcript)
@@ -129,9 +139,14 @@ def verify(ctx, proof, io: IO, transcript, device="cuda"):
 
     claims_by_layer = {}
     out_nodes = ctx.model.output_nodes()
+
+    def merger(nid, wire, cands):
+        sp = proof.merges[(nid, wire)]
+        return same_poly_verify(sp, cands, len(cands[0].point), transcript)
+
     for nid in ctx.backward_order():
         node_ctx = ctx.steps_info[nid]
-        claims = claims_for_node(ctx.model, nid, claims_by_layer, out_claims, out_nodes)
+        claims = claims_for_node(ctx.model, nid, claims_by_layer, out_claims, out_nodes, merger)
         if node_ctx.ctx.is_provable:
             claims = node_ctx.ctx.verify(proof.steps[nid], claims, v)
         claims_by_layer[nid] = claims

@@ -1,3 +1,4 @@
-from . import activation, convolution, dense, pooling, requant, shape_ops
+from . import activation, add, convolution, dense, embeddings, layernorm, matmul, pad, pooling, requant, shape_ops
 
-__all__ = ["activation", "convolution", "dense", "pooling", "requant", "shape_ops"]
+__all__ = ["activation", "add", "convolution", "dense", "embeddings", "layernorm", "matmul", "pad", "pooling",
+           "requant", "shape_ops"]

@@ -4,14 +4,18 @@
 Each table has (a) a merged Element column `in + 2^32 out` against which
 the looked-up values are counted and (b) its base-field columns, which the
 table proof proves and the verifier evaluates in closed form. Tables sort
-by kind, then parameters. This slice of the port has the tables of the
-Dense-MLP path: relu, range and clamping; the others arrive with the
-transformer slice.
+by kind, then parameters. The port has relu, range, clamping, gelu and
+inv_sqrt; softmax, error and zero arrive with attention. The gelu and
+inv_sqrt rows are built in float64 numpy on the host, as the JAX package
+builds them (a rounding difference would change the table), and their
+output columns are committed at setup: their claims go to the batched
+opening (`table_claims`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import struct
 from functools import total_ordering
 
 import numpy as np
@@ -27,7 +31,18 @@ _ORDER = {
     "relu": 0, "gelu": 1, "range": 2, "clamping": 3,
     "softmax": 4, "error": 5, "zero": 6, "inv_sqrt": 7,
 }
-_PORTED = ("relu", "range", "clamping")
+_LATER = ("softmax", "error", "zero")
+
+LAYERNORM_SCALE_FACTOR = 1 << 24
+LAYERNORM_OUTPUT_SCALE_FACTOR = 1 << 10
+
+
+def _f32_bits(v: float) -> int:
+    return struct.unpack("<I", struct.pack("<f", v))[0]
+
+
+def _f32(bits: int) -> float:
+    return struct.unpack("<f", struct.pack("<I", bits))[0]
 
 
 def _host_field(x: np.ndarray) -> np.ndarray:
@@ -39,9 +54,10 @@ def _host_field(x: np.ndarray) -> np.ndarray:
 @total_ordering
 @dataclasses.dataclass(frozen=True)
 class TableType:
-    """kind in {relu, range, clamping} (the JAX package's other kinds,
-    gelu, softmax, error, zero and inv_sqrt, sort here but raise);
-    params is a kind-specific tuple (the clamping bit size)."""
+    """kind in {relu, gelu, range, clamping, inv_sqrt} (the JAX package's
+    softmax, error and zero sort here but raise); params is a kind-specific
+    tuple: the clamping bit size; gelu's input and output scales and
+    inv_sqrt's epsilon as float32 bit patterns, inv_sqrt's shift."""
 
     kind: str
     params: tuple = ()
@@ -50,30 +66,36 @@ class TableType:
         return (_ORDER[self.kind], self.params) < (_ORDER[other.kind], other.params)
 
     def _check(self):
-        if self.kind not in _PORTED:
+        if self.kind in _LATER:
             raise NotImplementedError(
-                f"lookup table {self.kind!r} arrives with the transformer slice of the port"
+                f"lookup table {self.kind!r} arrives with the port's attention slice (ROADMAP queue 1 item 4)"
             )
 
     def name(self) -> str:
         self._check()
         if self.kind == "clamping":
             return f"Clamping: {self.params[0]}"
+        if self.kind == "gelu":
+            return "gelu"
+        if self.kind == "inv_sqrt":
+            return f"InverseSQRT - normalisation: {_f32(self.params[0])}, shift: {self.params[1]}"
         return {"relu": "Relu", "range": "Range"}[self.kind]
 
     def table_columns(self) -> tuple[np.ndarray, list[np.ndarray]]:
         """(merged Element column, [base-field u64 columns])."""
         self._check()
-        if self.kind == "relu":
-            i = np.arange(Q.MIN - 1, Q.MAX + 1, dtype=np.int64)
-            out = np.maximum(i, 0)
-            return i + out * COLUMN_SEPARATOR, [_host_field(i), _host_field(out)]
         if self.kind == "range":
             i = np.arange(0, 1 << Q.BIT_LEN, dtype=np.int64)
             return i.copy(), [_host_field(i)]
-        mx = 1 << (self.params[0] - 1)
-        i = np.arange(-mx, mx, dtype=np.int64)
-        out = np.clip(i, Q.MIN, Q.MAX)
+        if self.kind == "relu":
+            i = np.arange(Q.MIN - 1, Q.MAX + 1, dtype=np.int64)
+            out = np.maximum(i, 0)
+        elif self.kind == "clamping":
+            mx = 1 << (self.params[0] - 1)
+            i = np.arange(-mx, mx, dtype=np.int64)
+            out = np.clip(i, Q.MIN, Q.MAX)
+        else:
+            i, out = (gelu_rows if self.kind == "gelu" else inv_sqrt_rows)(self.params)
         return i + out * COLUMN_SEPARATOR, [_host_field(i), _host_field(out)]
 
     def num_columns(self) -> int:
@@ -82,12 +104,19 @@ class TableType:
 
     def multiplicity_poly_vars(self) -> int:
         self._check()
-        return self.params[0] if self.kind == "clamping" else Q.BIT_LEN
+        if self.kind == "clamping":
+            return self.params[0]
+        if self.kind == "inv_sqrt":
+            return 2 * (Q.BIT_LEN - 1) + 1
+        return Q.BIT_LEN
 
-    def committed_columns(self):
-        """Columns the PCS must commit: none of relu, range, clamping."""
+    def committed_columns(self, device):
+        """The columns the PCS commits at setup, as a field tensor on
+        `device`: the output column of gelu and inv_sqrt; None otherwise."""
         self._check()
-        return None
+        if self.kind not in ("gelu", "inv_sqrt"):
+            return None
+        return gf.from_u64(self.table_columns()[1][1], device)
 
     def generate_challenge(self, transcript):
         """The table's column-separation challenge: a host pair from a host
@@ -96,7 +125,8 @@ class TableType:
         if self.kind == "range":
             dev = getattr(transcript, "device", None)
             return (1, 0) if dev is None else gf.ext_ones((), dev)
-        return transcript.get_and_append_challenge(b"Relu" if self.kind == "relu" else b"Clamping")
+        label = {"relu": b"Relu", "clamping": b"Clamping", "gelu": b"GELU", "inv_sqrt": b"InverseSQRT"}
+        return transcript.get_and_append_challenge(label[self.kind])
 
     def evaluate_table_columns(self, point: list[ExtPair]) -> list[ExtPair]:
         """The verifier's evaluations of the table columns at `point`."""
@@ -111,6 +141,10 @@ class TableType:
         if self.kind == "range":
             assert len(point) == Q.BIT_LEN
             return [ident(point)]
+        if self.kind in ("gelu", "inv_sqrt"):
+            # rows run from the table's least input; the output is committed
+            assert len(point) == self.multiplicity_poly_vars()
+            return [host.ext_sub(ident(point), ((1 << (len(point) - 1)) % host.P, 0))]
         if self.kind == "relu":
             assert len(point) == Q.BIT_LEN
             first = host.ext_sub(ident(point), ((1 << (Q.BIT_LEN - 1)) % host.P, 0))
@@ -127,9 +161,42 @@ class TableType:
         return [first, host.mle_eval_v(cols[1], point)]
 
     def table_claims(self, claims: list) -> list:
-        """Claims that go to the commitment accumulator: none here."""
+        """Claims that go to the commitment accumulator: the committed output
+        column's (the last claim) of gelu and inv_sqrt."""
         self._check()
-        return []
+        return [claims[-1]] if self.kind in ("gelu", "inv_sqrt") else []
+
+    @staticmethod
+    def inv_sqrt(eps: float, range_check_bits: int) -> "TableType":
+        return TableType("inv_sqrt", (_f32_bits(eps), range_check_bits))
+
+
+def gelu_table_type(s_in: float, s_out: float) -> TableType:
+    return TableType("gelu", (_f32_bits(s_in), _f32_bits(s_out)))
+
+
+def gelu_rows(params) -> tuple[np.ndarray, np.ndarray]:
+    """GELU rows: inputs MIN - 1 ..= MAX, out = quant(gelu(dequant(i))) at
+    the float32 scales of `params`, in float64 numpy."""
+    s_in, s_out = _f32(params[0]), _f32(params[1])
+    i = np.arange(Q.MIN - 1, Q.MAX + 1, dtype=np.int64)
+    x = i.astype(np.float64) * s_in
+    g = 0.5 * x * (1.0 + np.tanh(np.sqrt(2.0 / np.pi) * (x + 0.044715 * x**3)))
+    return i, np.clip(np.round(g / s_out), Q.MIN, Q.MAX).astype(np.int64)
+
+
+def inv_sqrt_rows(params) -> tuple[np.ndarray, np.ndarray]:
+    """InverseSQRT rows -2^(2(B-1)) .. 2^(2(B-1)) - 1, out =
+    round(2^10 / sqrt(v 2^rc / 2^24 + eps)) (0 where not finite), in float64
+    numpy."""
+    eps, rc_bits = _f32(params[0]), params[1]
+    mx = 1 << (2 * (Q.BIT_LEN - 1))
+    i = np.arange(-mx, mx, dtype=np.int64)
+    shifted = (i.astype(np.float64) * float(1 << rc_bits)) / float(LAYERNORM_SCALE_FACTOR)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        f = 1.0 / np.sqrt(shifted + eps)
+    out = np.where(np.isfinite(f), np.round(f * LAYERNORM_OUTPUT_SCALE_FACTOR), 0.0).astype(np.int64)
+    return i, out
 
 
 @dataclasses.dataclass

@@ -39,6 +39,13 @@ class Tensor:
         return Q.to_field(padded)
 
 
+def pad_vec_pow2(v: torch.Tensor) -> torch.Tensor:
+    """Flatten and pad with zeros to a power of two."""
+    out = torch.zeros(next_pow2(v.numel()), dtype=torch.int64, device=v.device)
+    out[: v.numel()] = v.reshape(-1)
+    return out
+
+
 def pad_matrix_pow2(w: torch.Tensor) -> torch.Tensor:
     """Pad both dims of a matrix to powers of two with zeros."""
     r, c = w.shape

@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""Where one prove of Dense-4M, or of the CIFAR-10 LeNet, spends its time
-on a GPU.
+"""Where one prove of Dense-4M, of the CIFAR-10 LeNet or of GPT-2's
+feed-forward path spends its time on a GPU.
 
-    python3 scripts/profile_torch_slice.py [mlp] [cnn] [kernel]
+    python3 scripts/profile_torch_slice.py [mlp] [cnn] [gpt2_ffn] [kernel]
 
-With no argument all three parts run. `mlp` builds Dense-4M (bench.py's
-build_mlp_4m: six Dense -> Requant -> ReLU blocks, dims [4, 1024 x5, 3])
-and `cnn` the LeNet, both as chip_smoke.py's `mlp_4m` and `cnn` phases
-do; each runs setup and a warm prove, then prints:
+With no argument mlp, cnn and kernel run. `mlp` builds Dense-4M
+(bench.py's build_mlp_4m: six Dense -> Requant -> ReLU blocks, dims
+[4, 1024 x5, 3]), `cnn` the LeNet and `gpt2_ffn` GPT-2 at width 128 from
+its Positional node through the feed-forward halves of blocks 0 and 1,
+each as chip_smoke.py's phase of that name builds it; each runs setup and
+a warm prove, then prints:
   1. `components`: inclusive wall time and calls of the prove's main steps
      (the lookup witnesses and their commits, the consolidated lookup
      proofs, the table proofs, the layer proves, the sumchecks, the
      commitment opening and its parts; for the LeNet also each conv's
      clearing, iFFT, hadamard and FFT sumchecks, its two delegation
      chains, its phi tables, the maxpools, and the FFT rows of inference),
+     for GPT-2 also each LayerNorm, MatMul, Gelu, Add and Positional
+     prove and the fan-out merges),
      each wrapped (in this script only) with a device synchronize on entry
      and exit, so queued device work is charged to the step that queued it;
   2. `profile`: one prove under torch.profiler (CPU and CUDA activity):
@@ -221,6 +225,8 @@ def build_path(cs, path):
 
     if path == "cnn":
         return cs.quantized_lenet(R.LENET, *R.lenet_float_ops(R.LENET, np.random.default_rng(0)))
+    if path == "gpt2_ffn":
+        return cs.gpt2_ffn_model()[:2]
     layers, x_np = cs.build_chain(cs.MLP_4M_DIMS, 0)
     return mlp_chain_from_arrays(layers, device="cuda"), x_np
 
@@ -235,7 +241,8 @@ def profile_path(cs, path) -> None:
     from deepprove_tpu_torch.zkml import commit
     from deepprove_tpu_torch.zkml.iop import Context, Prover
     from deepprove_tpu_torch.zkml.iop import prover as iop_prover
-    from deepprove_tpu_torch.zkml.layers import activation, convolution, dense, pooling, requant
+    from deepprove_tpu_torch.zkml.layers import (activation, add, convolution, dense, embeddings, layernorm, matmul,
+                                                 pooling, requant)
     from deepprove_tpu_torch.zkml.tensor import Tensor
 
     model, x_np = build_path(cs, path)
@@ -256,6 +263,12 @@ def profile_path(cs, path) -> None:
         (activation.Relu, "prove", "relu_layer"),
         (dense.Dense, "prove", "dense_layer"),
         (pooling.Maxpool2D, "prove", "maxpool_layer"),
+        (layernorm.LayerNorm, "prove", "layernorm_layer"),
+        (matmul.MatMul, "prove", "matmul_layer"),
+        (activation.Gelu, "prove", "gelu_layer"),
+        (add.Add, "prove", "add_layer"),
+        (embeddings.Positional, "prove", "positional_layer"),
+        (iop_prover, "same_poly_prove_device", "fanout_merges"),
         (commit.CommitmentProver, "prove", "commit_open"),
         (fused, "prove_device", "sumcheck"),
         (basefold, "commit_many", "basefold_commit"),
@@ -265,7 +278,7 @@ def profile_path(cs, path) -> None:
         (glue, "materialize", "materialize"),
     ]
     originals = [(o, n, _wrap(o, n, table, k)) for o, n, k in targets]
-    by_name = (dense, requant, pooling, logup, commit, sumcheck_pkg)  # bound prove_device by name
+    by_name = (dense, requant, pooling, logup, commit, sumcheck_pkg, matmul, layernorm)  # bound prove_device by name
     for mod in by_name:
         mod.prove_device = fused.prove_device
     convolution.prove_device = fused.prove_device
@@ -370,10 +383,10 @@ def main(argv) -> int:
     for part in parts:
         if part == "kernel":
             kernel_part(cs)
-        elif part in ("mlp", "cnn"):
+        elif part in ("mlp", "cnn", "gpt2_ffn"):
             profile_path(cs, part)
         else:
-            raise SystemExit(f"unknown part {part!r}; choose from mlp, cnn, kernel")
+            raise SystemExit(f"unknown part {part!r}; choose from mlp, cnn, gpt2_ffn, kernel")
     return 0
 
 

@@ -196,6 +196,64 @@ def cnn_reference(name: str) -> dict:
     }
 
 
+def jax_graph(case: dict) -> tuple:
+    """The JAX package's Model and input Tensors of one `R.graph_case`."""
+    from deepprove_tpu.zkml import llm
+    from deepprove_tpu.zkml.float_model import FAdd
+    from deepprove_tpu.zkml.layers.activation import Gelu
+    from deepprove_tpu.zkml.layers.add import Add
+    from deepprove_tpu.zkml.layers.embeddings import Embeddings, Positional
+    from deepprove_tpu.zkml.layers.layernorm import LayerNorm
+    from deepprove_tpu.zkml.layers.matmul import MatMul
+    from deepprove_tpu.zkml.layers.pad import Pad2D
+    from deepprove_tpu.zkml import model as model_mod
+    from deepprove_tpu.zkml.model import Edge
+
+    if "gpt2" in case:
+        _, model, x = R.gpt2_ffn_graph(llm, model_mod, Positional, case["gpt2"], case["seq"], case["tokens"],
+                                       requant_bits=case.get("requant_bits"))
+        return model, [Tensor(x)]
+    if "float" in case:
+        fm = FloatModel(input_shape=case["input_shape"])
+        kinds = {"dense": FDense, "relu": FRelu, "add": FAdd}
+        for kind, w, b, inputs in case["float"]:
+            fm.add_node(kinds[kind](weight=w, bias=b) if kind == "dense" else kinds[kind](), inputs)
+        model, s_in, _ = quantize(fm, "inference", case["cal"])
+        return model, [Tensor(s_in.quantize(case["cal"][0]).astype(np.int64))]
+    make = {
+        "dense": lambda f: Dense(matrix=f["matrix"], bias=f["bias"]),
+        "add": lambda f: Add(),
+        "pad": lambda f: Pad2D(pad=f["pad"], input_shape=f["input_shape"]),
+        "conv": lambda f: Convolution(filter=f["filter"], bias=f["bias"], input_shape=f["input_shape"],
+                                      stride=f["stride"]),
+        "matmul": lambda f: MatMul.new_constant(f["right"], f["bias"]) if "right" in f else MatMul(),
+        "embeddings": lambda f: Embeddings(table=f["table"]),
+        "positional": lambda f: Positional(table=f["table"]),
+        "requant": lambda f: Requant(spec=RequantSpec.from_multiplier(f["multiplier"], f["bits"])),
+        "gelu": lambda f: Gelu(s_in=f["s_in"], s_out=f["s_out"]),
+        "layernorm": lambda f: LayerNorm.from_float(f["gamma_f"], f["beta_f"], eps=f["eps"], s_in=f["s_in"]),
+    }
+    model = Model(num_inputs=len(case["inputs"]))
+    for kind, fields, edges in case["nodes"]:
+        model.add_node(make[kind](fields), [Edge(node=n, index=i) for n, i in edges])
+    return model, [Tensor(x) for x in case["inputs"]]
+
+
+def graph_reference(name: str, kw: dict) -> dict:
+    """One residual or transformer case of `R.graph_case`, proved and
+    verified with the JAX package; its proof with its fan-out merges."""
+    model, xs = jax_graph(R.graph_case(name))
+    trace = model.run(xs)
+    ctx = Context.generate(model, **kw)
+    proof = Prover(ctx, BasicTranscript(b"m2vec")).prove(trace)
+    verify(ctx, proof, IO(xs, trace.outputs), BasicTranscript(b"m2vec"))
+    return {
+        "inputs": [R.plain(x.data) for x in xs],
+        "output": R.plain(trace.outputs[0].data),
+        "proof": {k: R.plain(getattr(proof, k)) for k in R.GRAPH_PROOF_PARTS},
+    }
+
+
 PARTS = {
     "sumcheck": sumcheck_reference,
     "basefold": lambda: {name: basefold_reference(name) for name in ("rs", "trivial")},
@@ -203,6 +261,10 @@ PARTS = {
     "logup": lambda: {name: logup_reference(name) for name in R.LOGUP_CASES},
     "mlp": mlp_reference,
     "cnn": lambda: {name: cnn_reference(name) for name in R.CNN_CASES},
+    "residual": lambda: {name: graph_reference(name, R.RESIDUAL_KW) for name in R.RESIDUAL_CASES},
+    "transformer": lambda: {name: graph_reference(name, R.TRANSFORMER_KW) for name in R.TRANSFORMER_CASES},
+    # the tiny GPT-2 graph, not in the frozen file (hours of XLA compiles)
+    "gpt2_ffn": lambda: graph_reference(R.GPT2_CASE, R.TRANSFORMER_KW),
 }
 
 

@@ -222,12 +222,35 @@ def test_pad_pass_equals_jax_on_the_lenet_shapes():
 
 
 def test_pad_and_add_wait_for_a_later_slice():
-    fm = port_fm.FloatModel(input_shape=(1, 4, 4))
-    fm.add(port_fm.FPad(pad=1))
-    for call in (lambda: port_fm.quantize(fm, device="cpu"), lambda: fm.forward(np.zeros((1, 4, 4))),
-                 lambda: port_fm.FAdd().forward(1.0, 2.0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-            call()
+    """FPad and FAdd, once left for a later slice, now run and quantize as
+    the JAX package's: a pad's float output and its quantized layer
+    (Pad2D), a residual add's (requant each branch, Add, renormalize)."""
+    from deepprove_tpu.zkml import float_model as jax_fm
+
+    rng = np.random.default_rng(3)
+    x = rng.uniform(-1, 1, size=(1, 4, 4))
+    fm, jfm = port_fm.FloatModel(input_shape=(1, 4, 4)), jax_fm.FloatModel(input_shape=(1, 4, 4))
+    for m, mod in ((fm, port_fm), (jfm, jax_fm)):
+        m.add(mod.FPad(pad=1))
+        m.add_node(mod.FAdd(), [0, 0])
+    np.testing.assert_array_equal(fm.forward(x), jfm.forward(x))
+    assert fm.forward(x).shape == (1, 8, 8)
+    q, s_in, s_out = port_fm.quantize(fm, "inference", [x], device="cpu")
+    jq, js_in, js_out = jax_fm.quantize(jfm, "inference", [x])
+    assert [type(q.nodes[n].op).__name__ for n in q.forward_order()] == [
+        "Pad2D", "Requant", "Requant", "Add", "Requant"]
+    assert [type(jq.nodes[n].op).__name__ for n in jq.forward_order()] == [
+        "Pad2D", "Requant", "Requant", "Add", "Requant"]
+    assert [(s.min, s.max, s.scale) for s in (s_in, s_out)] == [(s.min, s.max, s.scale) for s in (js_in, js_out)]
+    for n in q.forward_order():
+        assert [(e.node, e.index) for e in q.nodes[n].inputs] == [(e.node, e.index) for e in jq.nodes[n].inputs]
+        if hasattr(q.nodes[n].op, "spec"):
+            assert dataclasses.asdict(q.nodes[n].op.spec) == dataclasses.asdict(jq.nodes[n].op.spec)
+    xq = s_in.quantize(x)
+    got = q.run([Tensor(torch.from_numpy(xq))], device="cpu").outputs[0].data.numpy()
+    from deepprove_tpu.zkml.tensor import Tensor as JaxTensor
+
+    np.testing.assert_array_equal(got, jq.run([JaxTensor(xq)]).outputs[0].data)
 
 
 def _ints_attr(name, vals):

@@ -39,11 +39,15 @@ def test_importing_every_module_loads_no_jax():
 
 @pytest.mark.parametrize(
     "module", ["deepprove_tpu_torch.kernels", "deepprove_tpu_torch.transcript.device",
-               "deepprove_tpu_torch.sumcheck.fused"],
+               "deepprove_tpu_torch.sumcheck.fused", "deepprove_tpu_torch.zkml.layers.add",
+               "deepprove_tpu_torch.zkml.layers.pad", "deepprove_tpu_torch.zkml.layers.matmul",
+               "deepprove_tpu_torch.zkml.layers.layernorm", "deepprove_tpu_torch.zkml.layers.embeddings",
+               "deepprove_tpu_torch.zkml.llm"],
 )
 def test_the_walk_reaches_the_device_transcript_and_fused_sumcheck(module):
     """The module walk above covers the kernel modules of the device-resident
-    transcript and the fused sumcheck."""
+    transcript and the fused sumcheck, and the residual and transformer
+    layers."""
     import pkgutil
 
     import deepprove_tpu_torch as p
@@ -63,7 +67,10 @@ def test_sources_do_not_import_jax_or_the_jax_package():
 def _entry_points():
     from deepprove_tpu_torch.transcript import BasicTranscript
     from deepprove_tpu_torch.api import prove_model, prove_onnx
-    from deepprove_tpu_torch.zkml.convert import dense_chain_from_arrays, mlp_chain_from_arrays, model_from_layers
+    from deepprove_tpu_torch.zkml import llm
+    from deepprove_tpu_torch.zkml.convert import (dense_chain_from_arrays, mlp_chain_from_arrays, model_from_graph,
+                                                  model_from_layers)
+    from deepprove_tpu_torch.zkml.layers.layernorm import LayerNorm
     from deepprove_tpu_torch.zkml.float_model import FDense, FloatModel, quantize
     from deepprove_tpu_torch.zkml.iop import IO, Context, Prover, verify
     from deepprove_tpu_torch.zkml.tensor import Tensor
@@ -84,13 +91,17 @@ def _entry_points():
         "quantize": lambda: quantize(fm),
         "api.prove_model": lambda: prove_model(model, [x]),
         "api.prove_onnx": lambda: prove_onnx("model.onnx", [np.zeros(2)]),
+        "convert_graph": lambda: model_from_graph([("add", {}, [(None, 0), (None, 0)])]),
+        "LayerNorm.from_float": lambda: LayerNorm.from_float(np.ones(2), np.zeros(2), 1e-5, 0.1),
+        "GPT2Builder": lambda: llm.GPT2Builder(
+            llm.GPT2Weights.synthetic(llm.LLMConfig(vocab=4, emb=2, heads=1, blocks=1, context=2)), 2),
     }
 
 
 @pytest.mark.parametrize(
     "name",
     ["convert", "convert_mlp", "Model.run", "Context.generate", "Prover", "verify", "convert_layers",
-     "quantize", "api.prove_model", "api.prove_onnx"],
+     "quantize", "api.prove_model", "api.prove_onnx", "convert_graph", "LayerNorm.from_float", "GPT2Builder"],
 )
 def test_entry_point_without_a_card_raises(monkeypatch, name):
     call = _entry_points()[name]

@@ -204,12 +204,16 @@ def test_cuda_permutation_matches_host_on_random_states(cuda_device):
 # for each degree, with the tail from round 0 and from round 4; rows of 2^19
 # with the tail from 10, whose first finish sums 1024 partials (more than
 # the kernel's threads, at the main path's degree 2 and the maxpool's 5);
-# then the edge shapes of torch_reference.SUMCHECK_EDGE_CASES
+# LayerNorm's two sumchecks; then the edge shapes of torch_reference.SUMCHECK_EDGE_CASES
 _SUMCHECK_CASES = {
     f"n7_degree_{d}_tail_{t}": (7, 5, [list(range(d)), [4]], d, t) for t in (10, 3) for d in range(1, 6)
 }
 _SUMCHECK_CASES["n19_two_rows_degree_2_tail_10"] = (19, 2, [[0, 1], [1]], 2, 10)
 _SUMCHECK_CASES["n19_one_row_degree_5_tail_10"] = (19, 1, [[0, 0, 0, 0, 0], [0]], 5, 10)
+# LayerNorm's io sumcheck (degree 4) and its linking sumcheck, whose
+# products list one row twice, with two rounds above the tail
+_SUMCHECK_CASES["layernorm_io_n12_tail_10"] = (12, 6, [[0, 1, 2, 3], [0, 1, 4, 3], [0, 5]], 4, 10)
+_SUMCHECK_CASES["layernorm_link_n12_tail_10"] = (12, 3, [[0, 1, 1], [0, 2, 2]], 3, 10)
 _SUMCHECK_CASES.update(R.SUMCHECK_EDGE_CASES)
 
 

@@ -178,8 +178,8 @@ def test_tables_and_challenges_match_jax_host_code():
     assert (ours.constant_challenge, ours.challenge_map) == (
         theirs.constant_challenge, theirs.challenge_map
     )
-    with pytest.raises(NotImplementedError, match="transformer slice"):
-        LC.TableType("gelu", (1, 2)).table_columns()
+    with pytest.raises(NotImplementedError, match="attention slice"):
+        LC.TableType("softmax", (1, 2, 3)).table_columns()
 
 
 def test_requant_spec_matches_jax():

@@ -25,6 +25,10 @@ def _recompute(part):
         return M.logup_reference(part.split("_", 1)[1])
     if part.startswith("cnn_"):
         return M.cnn_reference(part.split("_", 1)[1])
+    if part.startswith("residual_"):
+        return M.graph_reference(part.split("_", 1)[1], R.RESIDUAL_KW)
+    if part.startswith("transformer_"):
+        return M.graph_reference(part.split("_", 1)[1], R.TRANSFORMER_KW)
     return M.PARTS[part]()
 
 
@@ -34,14 +38,16 @@ def _frozen(part):
         return ref["basefold"][part.split("_")[1]]
     if part.startswith("logup_"):
         return ref["logup"][part.split("_", 1)[1]]
-    if part.startswith("cnn_"):
-        return ref["cnn"][part.split("_", 1)[1]]
+    for group in ("cnn", "residual", "transformer"):
+        if part.startswith(group + "_"):
+            return ref[group][part.split("_", 1)[1]]
     return ref[part]
 
 
 PARTS = ["sumcheck", "basefold_rs", "basefold_trivial", "dense"]
 PARTS += [f"logup_{name}" for name in R.LOGUP_CASES] + ["mlp"]
 PARTS += [f"cnn_{name}" for name in R.CNN_CASES]
+PARTS += [f"residual_{name}" for name in R.RESIDUAL_CASES] + [f"transformer_{name}" for name in R.TRANSFORMER_CASES]
 
 
 @pytest.mark.parametrize("part", PARTS)

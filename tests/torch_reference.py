@@ -255,6 +255,300 @@ def numpy_eval(records, x) -> np.ndarray:
     return v
 
 
+# the residual slice (ROADMAP queue 1 item 2) at the JAX tests' PCS sizes:
+# tests/test_fanout.py's residual (a dense output feeding a dense and the
+# add), tests/test_zkml_layers.py:25 (an add of two dense branches of the
+# input), tests/test_pad.py's Pad2D alone and before a conv, and
+# tests/test_capture_and_dag_parser.py:34's residual float DAG quantized
+# with the inference observer
+RESIDUAL_KW = CNN_KW
+RESIDUAL_CASES = ("fanout", "add_branches", "pad", "padded_conv", "residual_float")
+
+# the transformer's first half (queue 1 item 3): tests/test_zkml_layers.py:42
+# (a matmul of two witness inputs), tests/test_zkml_transformer.py
+# (embeddings -> positional; dense -> requant -> gelu, the requant at 12
+# intermediate bits where that test's takes 20: its 2^19-row clamping table
+# cost minutes of a CPU prove), tests/test_layernorm.py, and "ffn_fanouts":
+# the chip phase's structure at seq 4, width 16, in one graph small enough
+# for the JAX package's CPU prove (positional -> layernorm -> requant ->
+# matmul with bias -> requant -> gelu -> add of the positional output, then
+# a matmul of that sum added back to it: the positional output and the
+# first add's each feed two layers, so two merges run in one backward
+# walk, beside the gelu, inv_sqrt, range and
+# clamping tables; each requant's bits fitted to its input, so its clamping
+# table has 2^8 rows).
+TRANSFORMER_KW = CNN_KW
+TRANSFORMER_CASES = ("matmul_witness", "embeddings", "gelu", "layernorm", "ffn_fanouts")
+# The feed-forward halves of two GPT-2 blocks from the positional node on
+# (zkml/llm.py:256-261, 380-402) at a tiny config, seq 4: "gpt2_ffn" with
+# the builder's Requant bits (the chip phase's graph), "gpt2_ffn_fit" with
+# each Requant's bits fitted to its input (clamping tables of 2^6-2^12 rows
+# instead of up to 2^17; multipliers, scales and outputs unchanged). Neither
+# is frozen: the JAX package's CPU prove of the first ran more than three
+# hours without finishing, and of the second spent more than 20 minutes in
+# one GKR level of its shared logup (34 instances, 5 variables) before it
+# was stopped. So the port's proof of "gpt2_ffn_fit" is held by its
+# verifier, and both graphs' layers and inference live against the JAX
+# package (tests/test_torch_transformer.py).
+GPT2_FIT_CASE = "gpt2_ffn_fit"
+# the bits of the eight Requants of "gpt2_ffn", in forward order, fitted as
+# |largest input| .bit_length() + 1 (clamping tables 2^8, 2^9, 2^12, 2^6,
+# 2^9, 2^9, 2^8, 2^8 rows instead of 2^13, 2^12, 2^17, 2^7, 2^17, 2^12,
+# 2^13, 2^10)
+GPT2_FIT_BITS = (26, 16, 16, 9, 23, 16, 16, 8)
+GPT2_CASE = "gpt2_ffn"
+GRAPH_PROOF_PARTS = ("steps", "merges", "table_proofs", "shared_logup", "commit")
+GPT2_TINY = dict(vocab=32, emb=16, heads=2, blocks=2, context=8)
+GPT2_TINY_SEQ = 4
+GPT2_TINY_TOKENS = (3, 7, 1, 5)
+# GPT-2-124M (bench.py:292-296) and the chip phase gpt2_ffn's cut of it:
+# the vocabulary, context, depth (the calibration runs all 12 blocks), head
+# width 64, seq 64 and prompt kept, the width cut from 768 to 128 (2 heads).
+# At 768 the JAX package's quantization gives clamping tables of 2^26 rows
+# (block 0's down-projection Requant) and 2^28 (block 1's LayerNorm
+# Requant), and the batch opening tiles every claim to the largest
+# polynomial; at 128 the largest is a clamping table of 2^22 rows.
+GPT2_124M = dict(vocab=50257, emb=768, heads=12, blocks=12, context=1024)
+GPT2_FFN_CHIP = dict(GPT2_124M, emb=128, heads=2)
+GPT2_124M_SEQ = 64
+
+
+def _ints(rng, shape, lo=Q_MIN, hi=Q_MAX + 1):
+    return rng.integers(lo, hi, size=shape).astype(np.int64)
+
+
+def graph_case(name: str) -> dict:
+    """One residual or transformer case. A layer graph is
+    {"nodes": [(kind, fields, [(producer index or None, wire)])],
+    "inputs": [int64 arrays]}: the producer index is a position in `nodes`,
+    None a model input (the wire then its index). Kinds and fields: dense
+    (matrix, bias), add, pad (pad, input_shape), conv (filter, bias,
+    input_shape, stride), matmul (two witness inputs), embeddings (table),
+    positional (table), requant (multiplier, bits: RequantSpec.from_multiplier),
+    gelu (s_in, s_out), layernorm (gamma_f, beta_f, eps, s_in:
+    LayerNorm.from_float). "residual_float" is {"float": [(kind, weight,
+    bias, [input ids])], "input_shape", "cal": calibration inputs}, quantized
+    with the inference observer, cal[0] proved; "gpt2_ffn" is {"gpt2":
+    config, "seq", "tokens"}, built by each package's `GPT2Builder`, and
+    "gpt2_ffn_fit" the same with "requant_bits" (`gpt2_ffn_graph`)."""
+    if name in ("gpt2_ffn", "gpt2_ffn_fit"):
+        case = {"gpt2": dict(GPT2_TINY), "seq": GPT2_TINY_SEQ, "tokens": np.array(GPT2_TINY_TOKENS, dtype=np.int64)}
+        return {**case, "requant_bits": GPT2_FIT_BITS} if name == "gpt2_ffn_fit" else case
+    seeds = {n: 130 + i for i, n in enumerate(RESIDUAL_CASES + TRANSFORMER_CASES)}
+    rng = np.random.default_rng(seeds[name])
+    if name == "fanout":
+        d0, b0, d1, b1 = _ints(rng, (8, 8)), _ints(rng, 8), _ints(rng, (8, 8)), _ints(rng, 8)
+        nodes = [("dense", dict(matrix=d0, bias=b0), [(None, 0)]),
+                 ("dense", dict(matrix=d1, bias=b1), [(0, 0)]),
+                 ("add", {}, [(0, 0), (1, 0)])]
+        return {"nodes": nodes, "inputs": [_ints(rng, 8)]}
+    if name == "add_branches":
+        d0, b0, d1, b1 = _ints(rng, (8, 8)), _ints(rng, 8), _ints(rng, (8, 8)), _ints(rng, 8)
+        nodes = [("dense", dict(matrix=d0, bias=b0), [(None, 0)]),
+                 ("dense", dict(matrix=d1, bias=b1), [(None, 0)]),
+                 ("add", {}, [(0, 0), (1, 0)])]
+        return {"nodes": nodes, "inputs": [_ints(rng, 8)]}
+    if name == "pad":
+        return {"nodes": [("pad", dict(pad=1, input_shape=(2, 4, 4)), [(None, 0)])],
+                "inputs": [_ints(rng, (2, 4, 4))]}
+    if name == "padded_conv":
+        x, w, b = _ints(rng, (1, 4, 4)), _ints(rng, (2, 1, 3, 3)), _ints(rng, 2)
+        nodes = [("pad", dict(pad=1, input_shape=(1, 4, 4)), [(None, 0)]),
+                 ("conv", dict(filter=w, bias=b, input_shape=(1, 8, 8), stride=1), [(0, 0)])]
+        return {"nodes": nodes, "inputs": [x]}
+    if name == "residual_float":
+        dim = 8
+        w0, b0 = rng.normal(0, 0.3, (dim, dim)), rng.normal(0, 0.1, dim)
+        w1, b1 = rng.normal(0, 0.3, (dim, dim)), rng.normal(0, 0.1, dim)
+        ops = [("dense", w0, b0, [-1]), ("relu", None, None, [0]), ("dense", w1, b1, [1]),
+               ("add", None, None, [0, 2])]
+        return {"float": ops, "input_shape": (dim,), "cal": [rng.uniform(-1, 1, dim) for _ in range(4)]}
+    if name == "matmul_witness":
+        return {"nodes": [("matmul", {}, [(None, 0), (None, 1)])],
+                "inputs": [_ints(rng, (4, 8)), _ints(rng, (8, 4))]}
+    if name == "embeddings":
+        emb, pos = _ints(rng, (16, 8)), _ints(rng, (4, 8))
+        nodes = [("embeddings", dict(table=emb), [(None, 0)]), ("positional", dict(table=pos), [(0, 0)])]
+        return {"nodes": nodes, "inputs": [rng.integers(0, 16, size=4).astype(np.int64)]}
+    if name == "gelu":
+        nodes = [("dense", dict(matrix=np.eye(8, dtype=np.int64), bias=np.zeros(8, dtype=np.int64)), [(None, 0)]),
+                 ("requant", dict(multiplier=0.5, bits=12), [(0, 0)]),
+                 ("gelu", dict(s_in=1.0 / 64, s_out=1.0 / 64), [(1, 0)])]
+        return {"nodes": nodes, "inputs": [_ints(rng, 8)]}
+    if name == "layernorm":
+        gamma_f, beta_f = rng.normal(1.0, 0.2, size=16), rng.normal(0.0, 0.1, size=16)
+        ln = dict(gamma_f=gamma_f, beta_f=beta_f, eps=1e-5, s_in=1.0 / 64.0)
+        return {"nodes": [("layernorm", ln, [(None, 0)])], "inputs": [_ints(rng, (4, 16))]}
+    if name == "ffn_fanouts":
+        x, pos = _ints(rng, (4, 16), -64, 64), _ints(rng, (4, 16), -64, 64)
+        ln = dict(gamma_f=rng.normal(1.0, 0.2, size=16), beta_f=rng.normal(0.0, 0.1, size=16), eps=1e-5,
+                  s_in=1.0 / 64.0)
+        w1, b1, w2, b2 = _ints(rng, (16, 16)), _ints(rng, 16, -1000, 1000), _ints(rng, (16, 16)), _ints(rng, 16, -1000, 1000)
+        nodes = [("positional", dict(table=pos), [(None, 0)]),
+                 ("layernorm", ln, [(0, 0)]),
+                 ("requant", dict(multiplier=6.18e-06, bits=25), [(1, 0)]),
+                 ("matmul", dict(right=w1, bias=b1), [(2, 0)]),
+                 ("requant", dict(multiplier=0.00353, bits=16), [(3, 0)]),
+                 ("gelu", dict(s_in=1.0 / 16, s_out=1.0 / 16), [(4, 0)]),
+                 ("add", {}, [(0, 0), (5, 0)]),
+                 ("matmul", dict(right=w2, bias=b2), [(6, 0)]),
+                 ("add", {}, [(6, 0), (7, 0)])]
+        return {"nodes": nodes, "inputs": [x]}
+    raise ValueError(name)
+
+
+def gpt2_ffn_graph(llm, model_mod, positional_cls, cfg: dict, seq: int, tokens, table=lambda a: a,
+                   requant_bits=None, **builder_kw):
+    """The chip path's graph, built with one package's modules (`llm`,
+    `model` and the Positional class): GPT-2 from its Positional node
+    (llm.py:256-261) through the feed-forward halves of blocks 0 and 1
+    (`GPT2Builder._ffn`, llm.py:380-402), synthetic weights from seed 0,
+    scales from `_calibrate(tokens)`; `table` turns the positional numpy
+    table into the package's table type. `requant_bits`, where given, gives
+    the Requants in forward order these intermediate bit sizes, their
+    multipliers kept. Returns (builder, model, the model
+    input: the Embeddings node's output, its table padded to powers of two,
+    at the tokens padded to `seq`)."""
+    w = llm.GPT2Weights.synthetic(llm.LLMConfig(**cfg), seed=0)
+    b = llm.GPT2Builder(w, seq, **builder_kw)
+    sc = b._calibrate(np.asarray(tokens, dtype=np.int64))
+    s_emb = max(llm._mx(w.wte), llm._mx(w.wpe)) / Q_MAX
+    m = model_mod.Model(num_inputs=1)
+    pos_id = m.add_node(positional_cls(table=table(llm._q(w.wpe[: b.seq], s_emb))),
+                        [model_mod.Edge(node=None, index=0)])
+    x1, s1 = b._ffn(m, pos_id, s_emb, w.blocks[0], 0, sc)
+    b._ffn(m, x1, s1, w.blocks[1], 1, sc)
+    if requant_bits is not None:
+        requants = [n for n in m.forward_order() if isinstance(m.nodes[n].op, llm.Requant)]
+        assert len(requants) == len(requant_bits)
+        for nid, bits in zip(requants, requant_bits):
+            spec = llm.RequantSpec.from_multiplier(m.nodes[nid].op.spec.multiplier, bits)
+            m.nodes[nid].op = llm.Requant(spec=spec)
+    toks = np.zeros(b.seq, dtype=np.int64)
+    toks[: len(tokens)] = np.asarray(tokens)[: b.seq]
+    emb = llm._q(w.wte, s_emb)
+    d = 1 << max(0, (emb.shape[1] - 1).bit_length())
+    x = np.zeros((b.seq, d), dtype=np.int64)
+    x[:, : emb.shape[1]] = emb[toks]
+    return b, m, x
+
+
+def port_graph(case: dict, device):
+    """The port's Model of one `graph_case` on `device` and its inputs as
+    int64 numpy arrays (imports the port, never JAX)."""
+    import torch
+
+    from deepprove_tpu_torch.zkml import llm
+    from deepprove_tpu_torch.zkml import model as model_mod
+    from deepprove_tpu_torch.zkml.convert import float_model_from_graph, model_from_graph
+    from deepprove_tpu_torch.zkml.float_model import quantize
+    from deepprove_tpu_torch.zkml.layers.embeddings import Positional
+
+    if "gpt2" in case:
+        _, model, x = gpt2_ffn_graph(llm, model_mod, Positional, case["gpt2"], case["seq"], case["tokens"],
+                                     table=lambda a: torch.from_numpy(a).to(device),
+                                     requant_bits=case.get("requant_bits"), device=device)
+        return model, [x]
+    if "float" in case:
+        fm = float_model_from_graph(case["input_shape"], case["float"])
+        model, s_in, _ = quantize(fm, "inference", case["cal"], device=device)
+        return model, [s_in.quantize(case["cal"][0])]
+    return model_from_graph(case["nodes"], len(case["inputs"]), device=device), list(case["inputs"])
+
+
+def graph_records(model) -> list:
+    """A quantized DAG of either package as [(kind, fields, edges)] numpy
+    records, edges [(producer node or None, wire)]: positional table;
+    layernorm gamma, beta (padded), dim_size, multiplier, eps,
+    range_check_bits; requant the RequantSpec fields; matmul right_const,
+    bias (None where absent); gelu s_in, s_out; add none."""
+    kinds = {"Positional": "positional", "LayerNorm": "layernorm", "Requant": "requant", "MatMul": "matmul",
+             "Gelu": "gelu", "Add": "add"}
+
+    def arr(t):
+        return None if t is None else np.asarray(t.cpu() if hasattr(t, "cpu") else t, dtype=np.int64)
+
+    out = []
+    for nid in model.forward_order():
+        op = model.nodes[nid].op
+        kind = kinds[type(op).__name__]
+        if kind == "positional":
+            f = dict(table=arr(op.table))
+        elif kind == "layernorm":
+            f = dict(gamma=arr(op.gamma), beta=arr(op.beta), dim_size=op.dim_size, multiplier=op.multiplier,
+                     eps=op.eps, range_check_bits=op.range_check_bits)
+        elif kind == "requant":
+            f = {k: getattr(op.spec, k) for k in REQUANT_FIELDS}
+        elif kind == "matmul":
+            assert op.left_const is None, "a constant left operand is not on the GPT-2 path"
+            f = dict(right_const=arr(op.right_const), bias=arr(op.bias))
+        elif kind == "gelu":
+            f = dict(s_in=op.s_in, s_out=op.s_out)
+        else:
+            f = {}
+        out.append((kind, f, [(e.node, e.index) for e in model.nodes[nid].inputs]))
+    return out
+
+
+def _f32(v: float) -> float:
+    return float(np.float32(v))
+
+
+def numpy_eval_graph(records, inputs) -> np.ndarray:
+    """The last node's output of a `graph_records` DAG, evaluated with numpy
+    int64 alone: x + P; LayerNorm's integer rows through the InverseSQRT
+    table (rows from -2^14, out = round(2^10 / sqrt(v 2^rc / 2^24 + eps)));
+    the Requant arithmetic; an integer matmul with bias, padded to powers
+    of two; GELU through its table (inputs MIN - 1 ..= MAX, tanh form, the
+    scales as float32); an integer add."""
+
+    def pow2(n):
+        return 1 << max(0, (int(n) - 1).bit_length())
+
+    vals = {}
+    for nid, (kind, f, edges) in enumerate(records):
+        xs = [np.asarray(inputs[w]) if n is None else vals[n] for n, w in edges]
+        x = xs[0]
+        if kind == "positional":
+            t = f["table"]
+            v = x + t[: x.shape[0]]
+        elif kind == "layernorm":
+            g, b = f["gamma"], f["beta"]
+            xp = np.zeros((pow2(x.shape[0]), g.size), dtype=np.int64)
+            xp[: x.shape[0], : x.shape[1]] = x
+            s = xp.sum(axis=1)
+            full = f["multiplier"] * (f["dim_size"] * (xp * xp).sum(axis=1) - s * s)
+            mx = 1 << 14
+            rows = np.arange(-mx, mx, dtype=np.float64) * float(1 << f["range_check_bits"]) / float(1 << 24)
+            with np.errstate(invalid="ignore", divide="ignore"):
+                inv = 1.0 / np.sqrt(rows + _f32(f["eps"]))
+            table = np.where(np.isfinite(inv), np.round(inv * (1 << 10)), 0.0).astype(np.int64)
+            v = g[None, :] * (f["dim_size"] * xp - s[:, None]) * table[(full >> f["range_check_bits"]) + mx][:, None]
+            v = v + b[None, :]
+        elif kind == "requant":
+            shift = f["fp_scale"] + f["right_shift"]
+            v = np.clip((x * f["fixed_point_multiplier"] + (1 << (shift - 1))) >> shift, Q_MIN, Q_MAX)
+        elif kind == "matmul":
+            w = f["right_const"]
+            a = np.zeros((x.shape[0], w.shape[0]), dtype=np.int64)
+            a[:, : x.shape[1]] = x
+            c = a @ w
+            if f["bias"] is not None:
+                c = c + f["bias"][None, : c.shape[1]]
+            v = np.zeros((pow2(c.shape[0]), pow2(c.shape[1])), dtype=np.int64)
+            v[: c.shape[0], : c.shape[1]] = c
+        elif kind == "gelu":
+            i = np.arange(Q_MIN - 1, Q_MAX + 1, dtype=np.int64)
+            z = i.astype(np.float64) * _f32(f["s_in"])
+            gz = 0.5 * z * (1.0 + np.tanh(np.sqrt(2.0 / np.pi) * (z + 0.044715 * z**3)))
+            table = np.clip(np.round(gz / _f32(f["s_out"])), Q_MIN, Q_MAX).astype(np.int64)
+            v = table[x - (Q_MIN - 1)]
+        else:
+            v = xs[0] + xs[1]
+        vals[nid] = v
+    return vals[len(records) - 1]
+
+
 def _ext(rng):
     return tuple(int(v) for v in rng.integers(0, P, size=2, dtype=np.uint64))
 
