@@ -4,8 +4,16 @@
 // Replaces the JAX package's jitted round loop, sumcheck/fused.py
 // `_round_step_kernel` (:164) and `_fused_kernel` (:64). It proves
 //   sum_{x in {0,1}^n} sum_p c_p prod_f rows[idx[p][f]](x)
-// over a stacked (m, 2^n) extension array held as two int64 planes (the a0
-// plane, then the a1 plane, row-major). Each round: fold the previous
+// over m extension rows held as two int64 planes (a0, a1), laid end to
+// end. A row may be shorter than 2^n: a row of 2^l entries stands for its
+// tiling over the high variables, and is read at entry e mod 2^l. The fold
+// takes entries 2j and 2j + 1, low variable first, so a tiled row stays
+// periodic through every round and reading it modulo its length gives what
+// the tiling gave, at the cost of its own length. Each row's word of
+// `meta` is (offset << 6) | l: the row's 2^l entries (room for at least 2)
+// start at `offset` in the first buffer and at offset / 2 in the second,
+// which holds each row folded once (ping-pong buffers: a row after k folds
+// lies in the first buffer when k is even). Each round: fold the previous
 // round's challenge into every row (the lowest variable), form the round
 // message (the sum at t = 0..D of the lowest variable), absorb it with the
 // label b"Internal round" and squeeze the next challenge. A factor index of
@@ -121,13 +129,39 @@ __device__ __forceinline__ void store_l2(u64* p0, u64* p1, long long i, ext v) {
 // lo + r (hi - lo)
 __device__ __forceinline__ ext fold_pair(ext lo, ext hi, ext r) { return eadd(lo, emul(r, esub(hi, lo))); }
 
-// Product p at pair j (entries 2j, 2j + 1 of rows ld long) at t = 0..D,
-// times its coefficient, added into sums[0..D]. The coefficient is one more
-// factor, the same at every t. The tail (TAIL) reads its rows at L2.
-template <int D, bool TAIL>
-__device__ __forceinline__ void add_product(int p, long long j, const u64* v0, const u64* v1,
-                                            long long ld, const int* fidx, const u64* c0,
-                                            const u64* c1, ext* sums) {
+// A row's place: its offset in the buffer that holds it after `drop`
+// folds, and its length's log there (a row folded past its length is one
+// constant entry).
+struct Row {
+    long long off;
+    int lg;
+};
+
+__device__ __forceinline__ Row row_at(u64 meta, int drop) {
+    const int lg0 = (int)(meta & 63);
+    return {(long long)(meta >> 6) >> (drop & 1), lg0 > drop ? lg0 - drop : 0};
+}
+
+// Entries 2j, 2j + 1 of a row (lo, hi), read modulo its length; a row of one
+// entry gives it twice. The tail (TAIL) reads at L2.
+template <bool TAIL>
+__device__ __forceinline__ void read_pair(const u64* v0, const u64* v1, Row r, long long j, ext& lo,
+                                          ext& hi) {
+    if (r.lg == 0) {
+        lo = hi = TAIL ? load_l2(v0, v1, r.off) : load(v0, v1, r.off);
+        return;
+    }
+    const long long o = r.off + 2 * (j & ((1LL << (r.lg - 1)) - 1));
+    lo = TAIL ? load_l2(v0, v1, o) : load(v0, v1, o);
+    hi = TAIL ? load_l2(v0, v1, o + 1) : load(v0, v1, o + 1);
+}
+
+// Product p at pair j at t = 0..D, times its coefficient, added into
+// sums[0..D]; pair(row, lo, hi) gives a factor row's pair. The coefficient
+// is one more factor, the same at every t.
+template <int D, class Pair>
+__device__ __forceinline__ void add_product(int p, const int* fidx, const u64* c0, const u64* c1, Pair pair,
+                                            ext* sums) {
     ext acc[D + 1];
     bool any = false;
 #pragma unroll
@@ -136,9 +170,7 @@ __device__ __forceinline__ void add_product(int p, long long j, const u64* v0, c
         if (f < D) {
             const int row = fidx[p * D + f];
             if (row < 0) continue;  // the constant 1
-            const long long o = (long long)row * ld + 2 * j;
-            lo = TAIL ? load_l2(v0, v1, o) : load(v0, v1, o);
-            hi = TAIL ? load_l2(v0, v1, o + 1) : load(v0, v1, o + 1);
+            pair(row, lo, hi);
         } else {
             lo = hi = load(c0, c1, p);
         }
@@ -157,35 +189,56 @@ __device__ __forceinline__ void add_product(int p, long long j, const u64* v0, c
     for (int t = 0; t <= D; t++) sums[t] = eadd(sums[t], acc[t]);
 }
 
-// One pair j of one round of round_kernel, added into sums[0..D]. Rows of
-// the source are L long. With `fold`, entries 4j..4j+3 of each row fold by
-// r into entries 2j, 2j+1 of the destination (rows L / 2 long), and the
-// pair is read back from there; else the pair is entries 2j, 2j+1 of the
-// source.
+// One pair j of one round of round_kernel, added into sums[0..D]; the
+// source rows have had `drop` folds. With `fold`, each row's entries
+// 4j..4j+3 (modulo its length) fold by r into its entries 2j, 2j + 1 in
+// the destination; the thread whose j is below the folded row's pairs
+// writes them and reads them back, any other recomputes the same values
+// from the source (a short row's pairs repeat over j). Without, the pair is
+// the source's entries 2j, 2j + 1.
 template <int D>
 __device__ __forceinline__ void round_pass(long long j, bool fold, const u64* s0, const u64* s1,
-                                           u64* d0, u64* d1, int m, long long L, ext r,
-                                           const int* fidx, int np, const u64* c0,
-                                           const u64* c1, ext* sums) {
-    const u64 *v0 = s0, *v1 = s1;
-    long long ld = L;
-    if (fold) {
-        const long long half = L >> 1;
-        for (int i = 0; i < m; i++) {
-            const long long s = (long long)i * L + 4 * j;
-            const ext lo = fold_pair(load(s0, s1, s), load(s0, s1, s + 1), r);
-            const ext hi = fold_pair(load(s0, s1, s + 2), load(s0, s1, s + 3), r);
-            const long long d = (long long)i * half + 2 * j;
-            d0[d] = lo.a0;
-            d1[d] = lo.a1;
+                                           u64* d0, u64* d1, int m, const u64* meta, int drop, ext r,
+                                           const int* fidx, int np, const u64* c0, const u64* c1,
+                                           ext* sums) {
+    if (!fold) {
+        auto pair = [&](int row, ext& lo, ext& hi) { read_pair<false>(s0, s1, row_at(meta[row], drop), j, lo, hi); };
+        for (int p = 0; p < np; p++) add_product<D>(p, fidx, c0, c1, pair, sums);
+        return;
+    }
+    // the folded pair (lo, hi) of row `row`, from the source
+    auto folded = [&](Row src, ext& lo, ext& hi) {
+        if (src.lg == 0) {
+            lo = hi = load(s0, s1, src.off);
+        } else if (src.lg == 1) {
+            lo = hi = fold_pair(load(s0, s1, src.off), load(s0, s1, src.off + 1), r);
+        } else {
+            const long long s = src.off + 4 * (j & ((1LL << (src.lg - 2)) - 1));
+            lo = fold_pair(load(s0, s1, s), load(s0, s1, s + 1), r);
+            hi = fold_pair(load(s0, s1, s + 2), load(s0, s1, s + 3), r);
+        }
+    };
+    // does this thread write the row's folded pair j (its pairs: 2^(lg - 2), at least 1)?
+    auto owner = [&](Row src) { return src.lg >= 2 ? j < (1LL << (src.lg - 2)) : j == 0; };
+    for (int i = 0; i < m; i++) {
+        const Row src = row_at(meta[i], drop);
+        if (!owner(src)) continue;
+        ext lo, hi;
+        folded(src, lo, hi);
+        const long long d = row_at(meta[i], drop + 1).off + 2 * j;
+        d0[d] = lo.a0;
+        d1[d] = lo.a1;
+        if (src.lg >= 2) {
             d0[d + 1] = hi.a0;
             d1[d + 1] = hi.a1;
         }
-        v0 = d0;
-        v1 = d1;
-        ld = half;
     }
-    for (int p = 0; p < np; p++) add_product<D, false>(p, j, v0, v1, ld, fidx, c0, c1, sums);
+    auto pair = [&](int row, ext& lo, ext& hi) {
+        const Row src = row_at(meta[row], drop);
+        if (owner(src)) read_pair<false>(d0, d1, row_at(meta[row], drop + 1), j, lo, hi);
+        else folded(src, lo, hi);
+    };
+    for (int p = 0; p < np; p++) add_product<D>(p, fidx, c0, c1, pair, sums);
 }
 
 // The block's sums into total[0..V), V = 2(D + 1) words (t-major, a0 then
@@ -266,8 +319,9 @@ __device__ __forceinline__ ext absorb_and_squeeze(sponge::State& st, u64 word, i
 template <int D>
 __global__ void __launch_bounds__(ROUND_THREADS)
 round_kernel(const u64* __restrict__ s0, const u64* __restrict__ s1, u64* d0, u64* d1, int m,
-             long long L, const u64* r0, const u64* r1, const int* __restrict__ fidx, int np,
-             const u64* __restrict__ c0, const u64* __restrict__ c1, u64* __restrict__ partials) {
+             const u64* __restrict__ meta, int drop, long long L, const u64* r0, const u64* r1,
+             const int* __restrict__ fidx, int np, const u64* __restrict__ c0, const u64* __restrict__ c1,
+             u64* __restrict__ partials) {
     constexpr int V = 2 * (D + 1);
     __shared__ u64 red[(ROUND_THREADS / 32) * V];
     __shared__ u64 total[V];
@@ -279,7 +333,7 @@ round_kernel(const u64* __restrict__ s0, const u64* __restrict__ s1, u64* d0, u6
     for (int t = 0; t <= D; t++) sums[t] = {0, 0};
     if (j < count) {
         const ext r = fold ? ext{*r0, *r1} : ext{0, 0};
-        round_pass<D>(j, fold, s0, s1, d0, d1, m, L, r, fidx, np, c0, c1, sums);
+        round_pass<D>(j, fold, s0, s1, d0, d1, m, meta, drop, r, fidx, np, c0, c1, sums);
     }
     block_sum<D>(sums, red, total);
     if (threadIdx.x < V) partials[(long long)blockIdx.x * V + threadIdx.x] = total[threadIdx.x];
@@ -361,44 +415,54 @@ finish_kernel(const u64* __restrict__ partials, long long nblocks, int rnd, int 
 
 // The tail's rounds, each over the grid's threads (thread tid of nth).
 
-// Rows of 2^(lg_half + 1) in x fold by r into rows of 2^lg_half in y: one
-// thread an output entry e = (row, q). A thread loads FOLD_BATCH entries'
-// pairs before it folds any, so that their loads are in flight together.
+// The rows in x (after `drop` folds) fold by r into y: one thread an output
+// entry e = (row, q), q below 2^lg_half (the longest folded row's length);
+// a row's entries past its own folded length are left alone. A thread
+// loads FOLD_BATCH entries' pairs before it folds any, so that their loads
+// are in flight together.
 constexpr int FOLD_BATCH = 2;
 
 __device__ __forceinline__ void fold_rows(const u64* x0, const u64* x1, u64* y0, u64* y1, int m,
-                                          int lg_half, ext r, long long tid, long long nth) {
-    const long long half = 1LL << lg_half, count = (long long)m << lg_half;
+                                          const u64* meta, int drop, int lg_half, ext r, long long tid,
+                                          long long nth) {
+    const long long count = (long long)m << lg_half;
     for (long long e0 = tid; e0 < count; e0 += FOLD_BATCH * nth) {
         ext lo[FOLD_BATCH], hi[FOLD_BATCH];
+        long long dst[FOLD_BATCH];
 #pragma unroll
         for (int k = 0; k < FOLD_BATCH; k++) {
             const long long e = e0 + k * nth;
+            dst[k] = -1;
             if (e < count) {
-                const long long s = ((e >> lg_half) << (lg_half + 1)) + 2 * (e & (half - 1));
-                lo[k] = load_l2(x0, x1, s);
-                hi[k] = load_l2(x0, x1, s + 1);
+                const int row = (int)(e >> lg_half);
+                const long long q = e & ((1LL << lg_half) - 1);
+                const Row src = row_at(meta[row], drop);
+                if (src.lg == 0 ? q == 0 : q < (1LL << (src.lg - 1))) {
+                    dst[k] = row_at(meta[row], drop + 1).off + q;
+                    lo[k] = load_l2(x0, x1, src.off + (src.lg ? 2 * q : 0));
+                    hi[k] = load_l2(x0, x1, src.off + (src.lg ? 2 * q + 1 : 0));
+                }
             }
         }
 #pragma unroll
-        for (int k = 0; k < FOLD_BATCH; k++) {
-            const long long e = e0 + k * nth;
-            if (e < count) store_l2(y0, y1, e, fold_pair(lo[k], hi[k], r));
-        }
+        for (int k = 0; k < FOLD_BATCH; k++)
+            if (dst[k] >= 0) store_l2(y0, y1, dst[k], fold_pair(lo[k], hi[k], r));
     }
 }
 
-// The message's terms over rows of 2^(lg_pairs + 1) in v: one thread a
-// (product, pair), added into the thread's sums.
+// The message's terms over pairs of the rows in v (after `drop` folds, the
+// longest 2^(lg_pairs + 1) long): one thread a (product, pair), added into
+// the thread's sums.
 template <int D>
-__device__ __forceinline__ void message_terms(const u64* v0, const u64* v1, int lg_pairs,
-                                              const int* fidx, int np, const u64* c0,
-                                              const u64* c1, long long tid, long long nth,
-                                              ext* sums) {
+__device__ __forceinline__ void message_terms(const u64* v0, const u64* v1, const u64* meta, int drop,
+                                              int lg_pairs, const int* fidx, int np, const u64* c0,
+                                              const u64* c1, long long tid, long long nth, ext* sums) {
     const long long pairs = 1LL << lg_pairs, count = (long long)np << lg_pairs;
-    for (long long e = tid; e < count; e += nth)
-        add_product<D, true>((int)(e >> lg_pairs), e & (pairs - 1), v0, v1, 2 * pairs, fidx, c0,
-                             c1, sums);
+    for (long long e = tid; e < count; e += nth) {
+        const long long j = e & (pairs - 1);
+        auto pair = [&](int row, ext& lo, ext& hi) { read_pair<true>(v0, v1, row_at(meta[row], drop), j, lo, hi); };
+        add_product<D>((int)(e >> lg_pairs), fidx, c0, c1, pair, sums);
+    }
 }
 
 // The products' factor indices and coefficients of the tail, in shared
@@ -427,6 +491,16 @@ __device__ __forceinline__ Products stage_products(const int* fidx, int np, cons
     return {sf, s0, s1};  // visible to the block after its next barrier
 }
 
+// The rows' words, in shared memory when they fit in META_BYTES (512 rows),
+// for the same reason.
+constexpr int META_BYTES = 4096;
+
+__device__ __forceinline__ const u64* stage_meta(const u64* meta, int m, u64* stage) {
+    if ((long long)m * 8 > META_BYTES) return meta;
+    for (int i = threadIdx.x; i < m; i += blockDim.x) stage[i] = meta[i];
+    return stage;  // visible to the block after its next barrier
+}
+
 // A tail block's threads at degree D: 512 up to degree 3, 256 above, where
 // a thread of the message pass holds more sums and factors than 128
 // registers (the most at 512 threads an SM) keep without a stack.
@@ -435,9 +509,10 @@ __host__ __device__ constexpr int tail_threads() {
     return D <= 3 ? 512 : 256;
 }
 
-// Rounds rnd0..n-1 on rows of length L = 2^lg in buffer x (folding first by
-// challenge rnd0 - 1 when rnd0 > 0), ping-ponging with buffer y (rows of at
-// least L / 2); then the last fold into finals (2, m). One cooperative
+// Rounds rnd0..n-1 on the rows in buffer x, the longest 2^lg long
+// (folding first by challenge rnd0 - 1 when rnd0 > 0), ping-ponging with
+// buffer y (the rows' places after one fold more: see `meta`); then the
+// last fold into finals (2, m). One cooperative
 // launch: every block of the card takes part in every round, and three
 // grid barriers a round order the fold, the partial messages (in scratch:
 // a row of V words a block, then the challenge's 2 words) and the
@@ -446,7 +521,7 @@ __host__ __device__ constexpr int tail_threads() {
 // other SMs.
 template <int D>
 __global__ void __launch_bounds__(tail_threads<D>(), 1)
-tail_kernel(u64* x0, u64* x1, u64* y0, u64* y1, int m, int lg, int rnd0, int n,
+tail_kernel(u64* x0, u64* x1, u64* y0, u64* y1, int m, const u64* __restrict__ meta, int lg, int rnd0, int n,
             const int* __restrict__ fidx, int np, const u64* __restrict__ c0,
             const u64* __restrict__ c1, u64* msgs, u64* chals, u64* state, u64* finals,
             u64* scratch) {
@@ -455,7 +530,9 @@ tail_kernel(u64* x0, u64* x1, u64* y0, u64* y1, int m, int lg, int rnd0, int n,
     __shared__ u64 total[V];
     __shared__ u64 home[sponge::STATE_WORDS];  // block 0's: the sponge state between rounds
     __shared__ __align__(16) unsigned char stage[STAGE_BYTES];
+    __shared__ u64 meta_stage[META_BYTES / 8];
     const Products prod = stage_products<D>(fidx, np, c0, c1, stage);
+    const u64* rows = stage_meta(meta, m, meta_stage);
     cg::grid_group grid = cg::this_grid();
     const long long tid = (long long)blockIdx.x * THREADS + threadIdx.x;
     const long long nth = (long long)gridDim.x * THREADS;
@@ -466,11 +543,12 @@ tail_kernel(u64* x0, u64* x1, u64* y0, u64* y1, int m, int lg, int rnd0, int n,
     // memory between calls, so that the passes keep every register
     const u64* from = state;
     bool fold = rnd0 > 0;
+    int drop = fold ? rnd0 - 1 : 0;  // the folds the rows in x have had
     ext r = fold ? ext{chals[rnd0 - 1], chals[n + rnd0 - 1]} : ext{0, 0};
-    __syncthreads();  // the staged products
+    __syncthreads();  // the staged products and rows
     for (int rnd = rnd0; rnd < n; rnd++) {
         if (fold) {
-            fold_rows(x0, x1, y0, y1, m, lg - 1, r, tid, nth);
+            fold_rows(x0, x1, y0, y1, m, rows, drop, lg - 1, r, tid, nth);
             u64* t0 = x0;
             u64* t1 = x1;
             x0 = y0;
@@ -478,12 +556,13 @@ tail_kernel(u64* x0, u64* x1, u64* y0, u64* y1, int m, int lg, int rnd0, int n,
             y0 = t0;
             y1 = t1;
             lg--;
+            drop++;
             grid.sync();  // the folded rows, for every block's products
         }
         ext sums[D + 1];
 #pragma unroll
         for (int t = 0; t <= D; t++) sums[t] = {0, 0};
-        message_terms<D>(x0, x1, lg - 1, prod.fidx, np, prod.c0, prod.c1, tid, nth, sums);
+        message_terms<D>(x0, x1, rows, drop, lg - 1, prod.fidx, np, prod.c0, prod.c1, tid, nth, sums);
         block_sum_cols<D>(sums, cols, total);
         if (threadIdx.x < V)
             __stcg(reinterpret_cast<unsigned long long*>(partials) + (long long)blockIdx.x * V + threadIdx.x,
@@ -512,9 +591,10 @@ tail_kernel(u64* x0, u64* x1, u64* y0, u64* y1, int m, int lg, int rnd0, int n,
         r = load_l2(rg, rg + 1, 0);
         fold = true;
     }
-    // the rows are 2 long: fold the last challenge in
+    // the rows are at most 2 long: fold the last challenge in
     for (long long i = tid; i < m; i += nth) {
-        const ext f = fold_pair(load_l2(x0, x1, 2 * i), load_l2(x0, x1, 2 * i + 1), r);
+        const Row row = row_at(rows[i], drop);
+        const ext f = fold_pair(load_l2(x0, x1, row.off), load_l2(x0, x1, row.off + (row.lg ? 1 : 0)), r);
         finals[i] = f.a0;
         finals[m + i] = f.a1;
     }
@@ -539,8 +619,8 @@ cudaError_t tail_grid(int* blocks, int* per_sm) {
 }
 
 template <int D>
-int launch_tail(void* x0, void* x1, void* y0, void* y1, int m, long long L, int rnd0, int n,
-                const void* fidx, int np, const void* c0, const void* c1, void* msgs, void* chals,
+int launch_tail(void* x0, void* x1, void* y0, void* y1, int m, const void* meta, long long L, int rnd0,
+                int n, const void* fidx, int np, const void* c0, const void* c1, void* msgs, void* chals,
                 void* state, void* finals, void* scratch, cudaStream_t stream) {
     int blocks, per_sm;
     cudaError_t err = tail_grid<D>(&blocks, &per_sm);
@@ -549,10 +629,10 @@ int launch_tail(void* x0, void* x1, void* y0, void* y1, int m, long long L, int 
     u64 *ax0 = (u64*)x0, *ax1 = (u64*)x1, *ay0 = (u64*)y0, *ay1 = (u64*)y1;
     int lg = __builtin_ctzll((unsigned long long)L);
     const int* afidx = (const int*)fidx;
-    const u64 *ac0 = (const u64*)c0, *ac1 = (const u64*)c1;
+    const u64 *ac0 = (const u64*)c0, *ac1 = (const u64*)c1, *ameta = (const u64*)meta;
     u64 *amsgs = (u64*)msgs, *achals = (u64*)chals, *astate = (u64*)state, *afinals = (u64*)finals;
     u64* ascratch = (u64*)scratch;
-    void* args[] = {&ax0, &ax1, &ay0, &ay1, &m, &lg, &rnd0, &n, &afidx, &np, &ac0, &ac1,
+    void* args[] = {&ax0, &ax1, &ay0, &ay1, &m, &ameta, &lg, &rnd0, &n, &afidx, &np, &ac0, &ac1,
                     &amsgs, &achals, &astate, &afinals, &ascratch};
     err = cudaLaunchCooperativeKernel((const void*)tail_kernel<D>, dim3(blocks),
                                       dim3(tail_threads<D>()), args, 0, stream);
@@ -591,18 +671,19 @@ extern "C" int dp_sumcheck_tail_config(int degree, int* blocks, int* threads, in
     return (int)err;
 }
 
-// One round above the tail. r0/r1 point at the previous challenge (both
-// null in round 0: no fold, d0/d1 unused); partials gets one 2(D + 1)-word
-// row per block of ROUND_THREADS pairs. Returns cudaGetLastError() of the launch.
+// One round above the tail on the rows in (s0, s1) after `drop` folds, the
+// longest L long. r0/r1 point at the previous challenge (both null in round
+// 0: no fold, d0/d1 unused); partials gets one 2(D + 1)-word row per block
+// of ROUND_THREADS pairs. Returns cudaGetLastError() of the launch.
 extern "C" int dp_sumcheck_round(int degree, const void* s0, const void* s1, void* d0, void* d1,
-                                 int m, long long L, const void* r0, const void* r1,
-                                 const void* fidx, int np, const void* c0, const void* c1,
+                                 int m, const void* meta, int drop, long long L, const void* r0,
+                                 const void* r1, const void* fidx, int np, const void* c0, const void* c1,
                                  void* partials, void* stream) {
     const long long count = r0 ? L / 4 : L / 2;
     const unsigned blocks = (unsigned)((count + ROUND_THREADS - 1) / ROUND_THREADS);
 #define DP_ROUND(D)                                                                          \
     round_kernel<D><<<blocks, ROUND_THREADS, 0, (cudaStream_t)stream>>>(                            \
-        (const u64*)s0, (const u64*)s1, (u64*)d0, (u64*)d1, m, L, (const u64*)r0,             \
+        (const u64*)s0, (const u64*)s1, (u64*)d0, (u64*)d1, m, (const u64*)meta, drop, L, (const u64*)r0, \
         (const u64*)r1, (const int*)fidx, np, (const u64*)c0, (const u64*)c1, (u64*)partials)
     DP_DISPATCH(degree, DP_ROUND)
 #undef DP_ROUND
@@ -619,16 +700,17 @@ extern "C" int dp_sumcheck_finish(int degree, const void* partials, long long nb
     return (int)cudaGetLastError();
 }
 
-// Rows of L = 2^k in (x0, x1); (y0, y1) room for rows of L / 2; scratch
-// blocks * 2(degree + 1) + 2 words (dp_sumcheck_tail_config's blocks).
-// Launches one cooperative grid; returns the CUDA error of the launch.
+// The rows in (x0, x1) (rounds 0..rnd0 - 2 folded in), the longest L = 2^k
+// long, placed by `meta`; (y0, y1) the other buffer; scratch blocks *
+// 2(degree + 1) + 2 words (dp_sumcheck_tail_config's blocks). Launches one
+// cooperative grid; returns the CUDA error of the launch.
 extern "C" int dp_sumcheck_tail(int degree, void* x0, void* x1, void* y0, void* y1, int m,
-                                long long L, int rnd0, int n, const void* fidx, int np,
+                                const void* meta, long long L, int rnd0, int n, const void* fidx, int np,
                                 const void* c0, const void* c1, void* msgs, void* chals,
                                 void* state, void* finals, void* scratch, void* stream) {
     int err = (int)cudaErrorInvalidValue;
-#define DP_TAIL(D)                                                                            \
-    err = launch_tail<D>(x0, x1, y0, y1, m, L, rnd0, n, fidx, np, c0, c1, msgs, chals, state, \
+#define DP_TAIL(D)                                                                                  \
+    err = launch_tail<D>(x0, x1, y0, y1, m, meta, L, rnd0, n, fidx, np, c0, c1, msgs, chals, state, \
                          finals, scratch, (cudaStream_t)stream)
     DP_DISPATCH(degree, DP_TAIL)
 #undef DP_TAIL

@@ -23,6 +23,8 @@ meaning a0 + a1*X.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 
 import numpy as np
 import torch
@@ -85,10 +87,92 @@ def _canon_once(x):
 
 
 # ---------------------------------------------------------------------------
+# large arrays: a slice at a time
+# ---------------------------------------------------------------------------
+
+# An elementwise op over more than CHUNK elements runs a slice at a time
+# into one output: a multiply's temporaries are some ten arrays the size of
+# its operands, which at the 2^29 entries of a 2^28-row table's codeword
+# would not fit beside the arrays themselves.
+CHUNK = 1 << 24
+
+
+def _slices(shape):
+    """Index tuples that cut an output of `shape` into pieces of at most
+    CHUNK elements: blocks of rows, or pieces of one row of a 2-D shape
+    whose rows are longer than CHUNK (None: not cut)."""
+    inner = math.prod(shape[1:])
+    if inner <= CHUNK:
+        step = max(1, CHUNK // max(1, inner))
+        return [(slice(r, r + step),) for r in range(0, shape[0], step)]
+    if len(shape) != 2:
+        return None
+    return [(r, slice(c, c + CHUNK)) for r in range(shape[0]) for c in range(0, shape[1], CHUNK)]
+
+
+def _piece(x, idx, shape):
+    """Operand x's part of the output piece idx (x broadcasts to shape)."""
+    if isinstance(x, GF2):
+        return GF2(_piece(x.a0, idx, shape), _piece(x.a1, idx, shape))
+    if not isinstance(x, torch.Tensor) or x.dim() == 0:
+        return x
+    off = len(shape) - x.dim()
+    sel = []
+    for d, s in enumerate(idx):
+        if d < off:
+            continue
+        if x.shape[d - off] == 1 and shape[d] != 1:
+            sel.append(slice(None) if isinstance(s, slice) else 0)
+        else:
+            sel.append(s)
+    return x[tuple(sel)]
+
+
+def _numel(x) -> int:
+    if isinstance(x, GF2):
+        return x.a0.numel()
+    return x.numel() if isinstance(x, torch.Tensor) else 1
+
+
+def _shape(x):
+    return x.shape if isinstance(x, (torch.Tensor, GF2)) else ()
+
+
+def _in_pieces(fn):
+    """Run fn (elementwise, base or GF2 operands, a base or GF2 result) a
+    CHUNK-sized piece of its output at a time when it is larger."""
+
+    @functools.wraps(fn)
+    def run(*args):
+        for x in args:
+            if _numel(x) > CHUNK:
+                break
+        else:
+            return fn(*args)
+        shape = tuple(torch.broadcast_shapes(*(_shape(x) for x in args)))
+        pieces = _slices(shape) if shape else None
+        if pieces is None:
+            return fn(*args)
+        first = True
+        for idx in pieces:
+            part = fn(*(_piece(x, idx, shape) for x in args))
+            if first:
+                planes = [part.a0, part.a1] if isinstance(part, GF2) else [part]
+                outs = [torch.empty(shape, dtype=torch.int64, device=planes[0].device) for _ in planes]
+                first = False
+            for o, v in zip(outs, [part.a0, part.a1] if isinstance(part, GF2) else [part]):
+                o[idx] = v
+        return GF2(*outs) if len(outs) == 2 else outs[0]
+
+    return run
+
+
+# ---------------------------------------------------------------------------
 # base field
 # ---------------------------------------------------------------------------
 
 
+@_in_pieces
 def add(a, b):
     """a + b mod p; `b` may be a tensor or a canonical python int."""
     if isinstance(b, int):
@@ -98,11 +182,13 @@ def add(a, b):
     return torch.where(_ult(a, pmb), a + b, a - pmb)
 
 
+@_in_pieces
 def sub(a, b):
     d = a - b
     return torch.where(_ult(a, b), d + _P_T, d)
 
 
+@_in_pieces
 def neg(a):
     return torch.where(a == 0, a, _P_T - a)
 
@@ -124,6 +210,7 @@ def _reduce128(lo, hi):
     return torch.where(_ult(t2, t1), t2 + _EPS_T, t2)
 
 
+@_in_pieces
 def mul(a, b):
     """a * b mod p; `b` may be a tensor or a canonical python int."""
     return _canon_once(mul_lazy(a, b))
@@ -145,6 +232,7 @@ def mul_lazy(a, b):
     return _reduce128(lo, hi)
 
 
+@_in_pieces
 def mul_small(a, c: int):
     """a * c mod p for a python int 0 <= c < 2^31: each 32-bit half times
     c stays below 2^63, so `from_halves` reduces it."""
@@ -152,6 +240,7 @@ def mul_small(a, c: int):
     return from_halves(hi * c, lo * c)
 
 
+@_in_pieces
 def square(a):
     return _canon_once(square_lazy(a))
 
@@ -265,14 +354,17 @@ class GF2:
         return GF2(self.a0.reshape(*shape), self.a1.reshape(*shape))
 
 
+@_in_pieces
 def ext_add(a: GF2, b: GF2) -> GF2:
     return GF2(add(a.a0, b.a0), add(a.a1, b.a1))
 
 
+@_in_pieces
 def ext_sub(a: GF2, b: GF2) -> GF2:
     return GF2(sub(a.a0, b.a0), sub(a.a1, b.a1))
 
 
+@_in_pieces
 def ext_mul(a: GF2, b: GF2) -> GF2:
     """Karatsuba: 3 base muls + the binomial fold by W = 7."""
     t0 = mul(a.a0, b.a0)
@@ -281,6 +373,7 @@ def ext_mul(a: GF2, b: GF2) -> GF2:
     return GF2(add(t0, mul_small(t1, EXT_W)), sub(t2, add(t0, t1)))
 
 
+@_in_pieces
 def ext_mul_base(a: GF2, b) -> GF2:
     return GF2(mul(a.a0, b), mul(a.a1, b))
 

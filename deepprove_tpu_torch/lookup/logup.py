@@ -185,8 +185,9 @@ class _Circuits:
     def level_rows(self, level: int):
         """(kind, rows) for the sumcheck of GKR level `level` (1 = the output
         layer's children): rows per instance [d_hi, d_lo] for the lookup's
-        input layer ("initial_lookup"), else [n_lo, d_hi, n_hi, d_lo], as
-        one GF2 (instances * rows, 2^level) array in instance order."""
+        input layer ("initial_lookup"), else [n_lo, d_hi, n_hi, d_lo], in
+        instance order, each a GF2 (2^level,) view of the tree's layer (no
+        copy: the sumcheck stacks them)."""
         idx = len(self.dens) - 1 - level
         d_lo, d_hi = _halves(self.dens[idx])
         if self.initial_lookup and idx == 0:
@@ -195,8 +196,7 @@ class _Circuits:
             num = self.nums[idx - 1] if self.initial_lookup else self.nums[idx]
             n_lo, n_hi = _halves(num)
             kind, parts = "generic", [n_lo, d_hi, n_hi, d_lo]
-        rows = gf.ext_stack(parts, dim=1)
-        return kind, rows.reshape(-1, rows.shape[-1])
+        return kind, [part[i] for i in range(self.num_instances) for part in parts]
 
 
 def _on(challenge, device) -> GF2:
@@ -289,7 +289,9 @@ def _level_vp(circuits: _Circuits, level: int, point: GF2):
     kind, rows = circuits.level_rows(level)
     vp = VirtualPolynomial.new(level)
     vp.add_mle(mle_mod.eq_table(point))
-    base = vp.add_mle_rows(rows)
+    base = vp.num_mles
+    for row in rows:
+        vp.add_mle(row)
     width = 4 if kind == "generic" else 2
     for i in range(circuits.num_instances):
         r = base + width * i
@@ -331,6 +333,7 @@ def _prove_circuits(circuits: _Circuits, base_mles, is_table: bool, dt) -> LogUp
             claim = _final_lookup_claim(per, bc, apow)
         round_evaluations.append(evals)
 
+    circuits.nums = circuits.dens = None  # the tree is proved: free it before the columns' evaluations
     evals = _batch_evaluate(torch.stack(list(base_mles)), point)
     return LogUpProof(
         sumcheck_proofs=sumcheck_proofs,

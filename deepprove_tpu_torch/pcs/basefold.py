@@ -39,7 +39,7 @@ from ..poly import mle as mle_mod
 from ..transcript.session import label_chunks
 from . import ntt
 from .merkle import MerkleTree
-from .ntt import bit_reverse_perm, geom_powers
+from .ntt import bit_reverse_perm
 
 ExtPair = tuple[int, int]
 Digest = tuple[int, int, int, int]
@@ -62,40 +62,46 @@ class BasefoldParams:
     rate_log: int = 1
     num_queries: int = 200
     basecode_msg_size_log: int = 7
-    _fold_host: dict = dataclasses.field(default_factory=dict)
-    _fold_dev: dict = dataclasses.field(default_factory=dict)
 
     @property
     def full_codeword_log(self) -> int:
         return self.max_message_size_log + self.rate_log
 
-    def fold_coeffs_host(self, level: int) -> tuple[np.ndarray, np.ndarray]:
-        """x0, w for folding a 2^(level+1) codeword to 2^level:
-        x0[j] = w_{2^(level+1)}^rev(j) * gamma^2^(full-level-1), w = -1/(2 x0)."""
-        if level not in self._fold_host:
-            size = 1 << level
-            g = host.pow_const(
-                np.uint64(host.TWO_ADIC_GENERATOR), 1 << (host.TWO_ADICITY - level - 1)
-            )
-            g_inv = host.pow_const(g, host.P - 2)
-            pows = geom_powers(g, size)
-            pows_inv = geom_powers(g_inv, size)
-            rev = bit_reverse_perm(level) if level > 0 else np.zeros(1, dtype=np.int64)
-            s = 1 << (self.full_codeword_log - level - 1)
-            gamma_pow = host.pow_const(np.uint64(host.MULTIPLICATIVE_GENERATOR), s)
-            gamma_inv = host.pow_const(gamma_pow, host.P - 2)
-            half = np.uint64((host.P + 1) >> 1)  # 1/2
-            x0 = host.mul(pows[rev], gamma_pow)
-            w = host.neg(host.mul(host.mul(pows_inv[rev], gamma_inv), half))
-            self._fold_host[level] = (x0, w)
-        return self._fold_host[level]
+    def fold_coeffs_at(self, level: int, idxs: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """`fold_coeffs_device(level)` at the positions `idxs` alone (the
+        verifier's queries): x0 = w_{2^(level+1)}^rev(j) gamma^2^(full-level-1),
+        w = -1/(2 x0), a power each."""
+        p = host.P
+        g = int(host.pow_const(np.uint64(host.TWO_ADIC_GENERATOR), 1 << (host.TWO_ADICITY - level - 1)))
+        gamma_pow = int(host.pow_const(np.uint64(host.MULTIPLICATIVE_GENERATOR),
+                                       1 << (self.full_codeword_log - level - 1)))
+        half_gamma_inv = pow(gamma_pow, p - 2, p) * ((p + 1) >> 1) % p
+        g_inv = pow(g, p - 2, p)
+        x0, w = [], []
+        for j in np.asarray(idxs, dtype=np.int64).tolist():
+            rev = int(f"{j:0{level}b}"[::-1], 2) if level else 0
+            x0.append(pow(g, rev, p) * gamma_pow % p)
+            w.append(-pow(g_inv, rev, p) * half_gamma_inv % p)
+        return np.asarray(x0, dtype=np.uint64), np.asarray(w, dtype=np.uint64)
 
     def fold_coeffs_device(self, level: int, device):
-        key = (level, str(device))
-        if key not in self._fold_dev:
-            x0, w = self.fold_coeffs_host(level)
-            self._fold_dev[key] = (gf.from_u64(x0, device), gf.from_u64(w, device))
-        return self._fold_dev[key]
+        """x0, w for folding a 2^(level+1) codeword to 2^level, on `device`:
+        x0[j] = w_{2^(level+1)}^rev(j) * gamma^2^(full-level-1), w = -1/(2 x0)
+        (`ntt.device_constant`: cached up to 2^CACHED_CONSTANTS_LOG entries)."""
+
+        def make():
+            g = host.pow_const(np.uint64(host.TWO_ADIC_GENERATOR), 1 << (host.TWO_ADICITY - level - 1))
+            gamma_pow = host.pow_const(np.uint64(host.MULTIPLICATIVE_GENERATOR),
+                                       1 << (self.full_codeword_log - level - 1))
+            pows = ntt.bit_reverse(ntt.powers_device(int(g), 1 << level, device), level)
+            x0 = gf.mul(pows, int(gamma_pow))
+            del pows
+            pows_inv = ntt.bit_reverse(ntt.powers_device(int(host.pow_const(g, host.P - 2)), 1 << level, device),
+                                       level)
+            half_gamma_inv = host.mul(host.pow_const(gamma_pow, host.P - 2), np.uint64((host.P + 1) >> 1))
+            return x0, gf.neg(gf.mul(pows_inv, int(half_gamma_inv)))
+
+        return ntt.device_constant(("fold", level, self.full_codeword_log), level, device, make)
 
 
 def setup(max_message_size_log: int, **kw) -> BasefoldParams:
@@ -190,7 +196,13 @@ def write_commitment(cm: BasefoldCommitment, transcript):
 
 
 def _sumcheck_first_round(eq: GF2, evals) -> GF2:
-    """Coefficient-form degree-2 message (c0, c1, c2) of sum eq * evals."""
+    """Coefficient-form degree-2 message (c0, c1, c2) of sum eq * evals; a
+    slice of 2 gf.CHUNK entries at a time when longer (the sums are exact,
+    so the order does not matter)."""
+    step = 2 * gf.CHUNK
+    if eq.shape[0] > step:
+        parts = [_sumcheck_first_round(eq[i : i + step], evals[i : i + step]) for i in range(0, eq.shape[0], step)]
+        return gf.ext_sum_axis(gf.ext_stack(parts), 0)
     e_lo, e_hi = eq[0::2], eq[1::2]
     e_c1 = gf.ext_sub(e_hi, e_lo)
     f_lo, f_hi = evals[0::2], evals[1::2]
@@ -221,12 +233,18 @@ def _commit_phase_session(
     oracle_merger=None,
 ):
     """Shared commit phase. Returns (trees, msgs, roots, final_message);
-    `oracle_merger(i, oracle)` lets batch_open add codewords after a fold."""
+    `oracle_merger(i, oracle)` lets batch_open add codewords after a fold.
+    `codeword` may be a function giving (running_evals, codeword): a batch's
+    arrays, made here so that no other name holds them past their first
+    fold."""
     device = point.device
+    if callable(codeword):
+        running_evals, codeword = codeword()
     eq = mle_mod.eq_table(point, reverse=True)  # bit-reversed eq table
     msg = _sumcheck_first_round(eq, running_evals)
     trees, msgs, roots = [], [], []
     oracle = codeword
+    del codeword
     label = (label_chunks(COMMIT_ROUND_LABEL),)
     for i in range(num_rounds):
         msgs.append(msg)
@@ -523,9 +541,9 @@ def _verify_fold_chain_batch(
     fc = _ext_np(final_codeword)
     zeros = np.zeros(q_n, dtype=np.uint64)
     for rnd in range(num_rounds):
-        x0s, ws = params.fold_coeffs_host(level)
-        x0 = np.stack([x0s[idxs], zeros], axis=-1)
-        w = np.stack([ws[idxs], zeros], axis=-1)
+        x0s, ws = params.fold_coeffs_at(level, idxs)
+        x0 = np.stack([x0s, zeros], axis=-1)
+        w = np.stack([ws, zeros], axis=-1)
         r = np.broadcast_to(_ext_np([fold_challenges[rnd]]), (q_n, 2))
         folded = host.ext_add_v(
             cur_lo,
@@ -634,11 +652,14 @@ def batch_open_session(params, polys, comms, points, evals, dt) -> BasefoldProof
     """Batched opening of many (poly, point, eval) triples:
       1. b"batch coeffs" challenges t, eq_t table;
       2. sumcheck of sum_x sum_pt eq(x, point_pt) merged_pt(x) (merged_pt =
-         sum eq_t[i] poly_i, smaller polys tiled over the high vars);
+         sum eq_t[i] poly_i; a point's eq and merged rows keep their own
+         length, which the sumcheck reads as their tiling over the high
+         vars);
       3. per-commitment RLC coeffs eq(challenges[:n_pt], point) eq_t;
       4. batched commit phase folding codewords in at matching sizes;
       5. shared query phase over all commitments + fold trees."""
     from ..sumcheck import VirtualPolynomial, prove_device
+    from ..sumcheck.fused import empty_stack
 
     device = dt.device
     num_vars = max(c.num_vars for c in comms)
@@ -648,26 +669,30 @@ def batch_open_session(params, polys, comms, points, evals, dt) -> BasefoldProof
     else:
         eq_t = gf.ext_ones((1,), device)
 
-    merged = {}
+    # each point's eq row and merged row (sum_i eq_t[i] poly_i over its
+    # claims) are made in their place of the sumcheck's planes, a point at a
+    # time, so the rows are not held twice
+    by_point: dict = {}
     for i, ev in enumerate(evals):
-        term = _scale(polys[ev.poly], eq_t[i])
-        if ev.point in merged:
-            assert merged[ev.point].shape[0] == term.shape[0], (
-                "polys opened at one point must share size"
-            )
-            merged[ev.point] = gf.ext_add(merged[ev.point], term)
-        else:
-            merged[ev.point] = term
-
+        by_point.setdefault(ev.point, []).append(i)
+    order = sorted(by_point)
+    st = empty_stack([points[pt].shape[0] for pt in order for _ in range(2)], device)
     vp = VirtualPolynomial.new(num_vars)
-    for pt_idx, m in sorted(merged.items()):
-        n_pt = points[pt_idx].shape[0]
-        eq = mle_mod.eq_table(points[pt_idx])
-        reps = 1 << (num_vars - n_pt)
-        i_eq = vp.add_mle(_tile(eq, reps))
-        i_m = vp.add_mle(_tile(m, reps))
-        vp.add_product((1, 0), [i_eq, i_m])
-    sc_out = prove_device(vp, dt)
+    for k, pt in enumerate(order):
+        eq_row, m_row = st.row(2 * k), st.row(2 * k + 1)
+        _fill(eq_row, mle_mod.eq_table(points[pt]))
+        merged = None
+        for i in by_point[pt]:
+            term = _scale(polys[evals[i].poly], eq_t[i])
+            assert term.shape[0] == m_row.shape[0], "polys opened at one point must share size"
+            merged = _acc(merged, term)
+            del term
+        _fill(m_row, merged)
+        del merged
+        vp.add_product((1, 0), [vp.add_mle(eq_row), vp.add_mle(m_row)])
+    del eq_row, m_row
+    sc_out = prove_device(vp, dt, stacked=st)
+    del vp, st  # the planes: the rounds overwrote them
     challenges = sc_out.proof.point  # GF2 (num_vars,)
 
     coeffs = [gf.ext_zeros((), device) for _ in comms]
@@ -677,17 +702,25 @@ def batch_open_session(params, polys, comms, points, evals, dt) -> BasefoldProof
         coeffs[ev.poly] = gf.ext_add(coeffs[ev.poly], gf.ext_mul(e, eq_t[i]))
 
     full_cw = 1 << (num_vars + params.rate_log)
-    oracle = gf.ext_zeros((full_cw,), device)
-    run_evals = gf.ext_zeros((1 << num_vars,), device)
-    for c, comm in zip(coeffs, comms):
-        if comm.codeword_size() == full_cw:
-            oracle = gf.ext_add(oracle, _scale(comm.codeword, c))
-        # bit-reversed evals of smaller polys repeat over consecutive chunks
-        reps = 1 << (num_vars - comm.num_vars)
-        term = _scale(comm.bh_evals[0], c)
-        if reps > 1:
-            term = GF2(term.a0.repeat_interleave(reps), term.a1.repeat_interleave(reps))
-        run_evals = gf.ext_add(run_evals, term)
+
+    def oracle_and_evals():
+        """The RLC of the full-size codewords and the running evaluations.
+        The sums start from their first term, not from zeros: at 2^29
+        entries a zero array and a sum beside each term would be two arrays
+        too many; and no name here holds them past the commit phase's
+        first fold."""
+        oracle = run_evals = None
+        for c, comm in zip(coeffs, comms):
+            if comm.codeword_size() == full_cw:
+                oracle = _acc(oracle, _scale(comm.codeword, c))
+            # bit-reversed evals of smaller polys repeat over consecutive chunks
+            reps = 1 << (num_vars - comm.num_vars)
+            term = _scale(comm.bh_evals[0], c)
+            if reps > 1:
+                term = GF2(term.a0.repeat_interleave(reps), term.a1.repeat_interleave(reps))
+            run_evals = _acc(run_evals, term)
+            del term
+        return run_evals, oracle
 
     def merger(i, oracle):
         for c, comm in zip(coeffs, comms):
@@ -697,7 +730,7 @@ def batch_open_session(params, polys, comms, points, evals, dt) -> BasefoldProof
 
     num_rounds = num_vars - params.basecode_msg_size_log
     trees, msgs, roots, fm = _commit_phase_session(
-        params, challenges, run_evals, oracle, dt, num_vars, num_rounds,
+        params, challenges, None, oracle_and_evals, dt, num_vars, num_rounds,
         oracle_merger=merger,
     )
     indices = _sample_queries_session(params, dt, full_cw)
@@ -719,14 +752,18 @@ def batch_open(params, polys, comms, points, evals, transcript) -> BasefoldProof
     return dt.materialize(batch_open_session(params, polys, comms, points, evals, dt), transcript)
 
 
+def _fill(dst: GF2, src: GF2) -> None:
+    dst.a0.copy_(src.a0)
+    dst.a1.copy_(src.a1)
+
+
+def _acc(total, term: GF2) -> GF2:
+    return term if total is None else gf.ext_add(total, term)
+
+
 def _scale(poly, c: GF2) -> GF2:
     """c * poly for a base or ext poly."""
     return gf.ext_mul(c, poly) if isinstance(poly, GF2) else gf.ext_mul_base(c, poly)
-
-
-def _tile(values: GF2, reps: int) -> GF2:
-    """Repeat a little-endian poly over `reps` high-variable copies."""
-    return values if reps == 1 else GF2(values.a0.repeat(reps), values.a1.repeat(reps))
 
 
 def _eq_eval(x: GF2, y: GF2) -> GF2:

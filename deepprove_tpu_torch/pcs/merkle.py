@@ -10,6 +10,14 @@ As in the JAX package's `pcs/merkle.py` (Poseidon half):
 Levels are plane-major int64 (4, M) tensors, row e holding element e of
 every digest. A root is a (4,) device tensor (`root_dev`) or a 4-tuple of
 ints (`root`); host paths are (Q, depth, 4) uint64 arrays.
+
+A tree of more than 2^WHOLE_LOG leaf pairs keeps its levels of at most
+2^KEEP_LOG digests only: the wider ones, four times its leaves' bytes for
+a base codeword, are dropped as they are hashed, and a path rebuilds the
+lower part of its way from the leaves, the queried pair's subtree alone.
+Roots and paths are the same; a 2^28-pair tree keeps 4 MiB instead of 16
+GiB. A smaller tree (every one of Dense-4M's and the LeNet's) keeps every
+level, and its paths need no rebuild.
 """
 
 from __future__ import annotations
@@ -24,6 +32,9 @@ from ..fields.gf import GF2
 from ..hashing.poseidon2_cuda import compress_level
 
 Digest = tuple[int, int, int, int]
+
+WHOLE_LOG = 20
+KEEP_LOG = 16
 
 
 def leaf_digests(leaves) -> torch.Tensor:
@@ -42,13 +53,26 @@ def leaf_digests(leaves) -> torch.Tensor:
     return torch.stack([leaves[0::2], leaves[1::2], z, z])
 
 
+def dropped_levels(num_leaves: int) -> int:
+    """The levels a tree over `num_leaves` leaves does not keep: none up to
+    2^WHOLE_LOG pairs, else those wider than 2^KEEP_LOG digests."""
+    pairs_log = (max(1, num_leaves // 2) - 1).bit_length()
+    return 0 if pairs_log <= WHOLE_LOG else pairs_log - KEEP_LOG
+
+
 def tree_levels_many(leaves_list) -> list:
-    """Every digest level, from the leaf-pair digests up to the (4, 1) root,
-    of each of several equal-length leaf arrays. The trees are hashed side
-    by side, one `compress_level` call a level for all of them: each tree's
-    level width stays even until its root, so no pair straddles two trees."""
+    """The kept digest levels (`dropped_levels` of them left out), up to the
+    (4, 1) root, of each of several equal-length leaf arrays. The trees are
+    hashed side by side, one `compress_level` call a level for all of them:
+    each tree's level width stays even until its root, so no pair straddles
+    two trees."""
     b = len(leaves_list)
-    levels = [torch.cat([leaf_digests(leaves) for leaves in leaves_list], dim=1)]
+    drop = dropped_levels(leaves_list[0].shape[0])
+    level = torch.cat([leaf_digests(leaves) for leaves in leaves_list], dim=1)
+    levels = []
+    for _ in range(drop):
+        level = compress_level(level)
+    levels.append(level)
     while levels[-1].shape[1] > b:
         levels.append(compress_level(levels[-1]))
     return [[lvl.reshape(4, b, -1)[:, i] for lvl in levels] for i in range(b)]
@@ -56,10 +80,12 @@ def tree_levels_many(leaves_list) -> list:
 
 @dataclasses.dataclass
 class MerkleTree:
-    """Digest levels; levels[0] = leaf-pair digests, levels[-1] the root."""
+    """Digest levels from level `dropped` up (level 0 = the leaf-pair
+    digests), levels[-1] the root."""
 
     leaves: object  # base (N,) | GF2 (N,) -- bit-reversed codeword
-    levels: list  # int64 (4, M) digest planes
+    levels: list  # int64 (4, M) digest planes, from level `dropped` up
+    dropped: int = 0  # the lowest levels, rebuilt from the leaves for a path
 
     @staticmethod
     def from_leaves(leaves) -> "MerkleTree":
@@ -75,7 +101,8 @@ class MerkleTree:
         trees = [None] * len(leaves_list)
         for idx in by_len.values():
             for i, levels in zip(idx, tree_levels_many([leaves_list[i] for i in idx])):
-                trees[i] = MerkleTree(leaves=leaves_list[i], levels=levels)
+                trees[i] = MerkleTree(leaves=leaves_list[i], levels=levels,
+                                      dropped=dropped_levels(leaves_list[i].shape[0]))
         return trees
 
     @property
@@ -90,13 +117,30 @@ class MerkleTree:
 
     @property
     def depth(self) -> int:
-        return len(self.levels) - 1
+        return self.dropped + len(self.levels) - 1
+
+    def _subtree_siblings(self, pair_idx: torch.Tensor) -> list:
+        """The siblings on the dropped levels: each queried pair's subtree of
+        2^dropped pairs hashed anew from the leaves, the subtrees side by
+        side."""
+        d, dev = self.dropped, pair_idx.device
+        span = 1 << d
+        q = pair_idx.shape[0]
+        pairs = (((pair_idx >> d) << d)[:, None] + torch.arange(span, device=dev)).reshape(-1)
+        level = leaf_digests(self.leaves[torch.stack([2 * pairs, 2 * pairs + 1], dim=1).reshape(-1)])
+        sibs = []
+        for k in range(d):
+            width = span >> k
+            local = (pair_idx >> k) & (width - 1)
+            sibs.append(level[:, torch.arange(q, device=dev) * width + (local ^ 1)].T)
+            level = compress_level(level)
+        return sibs
 
     def paths_dev(self, pair_idx: torch.Tensor) -> torch.Tensor:
         """Sibling digests on the way up from leaf pairs `pair_idx` (Q,):
         (Q, depth, 4) on the device."""
-        idx = pair_idx
-        sibs = []
+        sibs = self._subtree_siblings(pair_idx) if self.dropped else []
+        idx = pair_idx >> self.dropped
         for lvl in self.levels[:-1]:
             sibs.append(lvl[:, idx ^ 1].T)
             idx = idx >> 1

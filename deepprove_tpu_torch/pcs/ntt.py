@@ -33,7 +33,7 @@ _DEVICE_CACHE: dict = {}
 
 
 def _on_device(key, device, make):
-    """Host-computed constant `make()` moved to `device` once, cached."""
+    """The constant `make()` on `device`, made once and cached."""
     k = (key, str(device))
     if k not in _DEVICE_CACHE:
         _DEVICE_CACHE[k] = make()
@@ -47,12 +47,22 @@ def _perm(lg_n: int, device) -> torch.Tensor:
     )
 
 
+# Above this size a bit reversal takes two small permutations instead of one
+# of its own length (a 2^29-entry index would be 4 GiB, cached).
+_DIRECT_REVERSE_LOG = 20
+
+
 def bit_reverse(values, lg_n: int):
-    """values[rev(i)] along the only axis, base tensor or GF2."""
-    perm = _perm(lg_n, values.device)
-    if isinstance(values, GF2):
-        return GF2(values.a0[perm], values.a1[perm])
-    return values[perm]
+    """values[rev(i)] along the only axis, base tensor or GF2. A large array
+    is a (2^a, 2^b) matrix V of its high and low bits, and its reversal is
+    V^T with its rows permuted by rev_b and its columns by rev_a."""
+    if lg_n <= _DIRECT_REVERSE_LOG:
+        perm = _perm(lg_n, values.device)
+        return _map_planes(values, lambda p: p[perm])
+    a = lg_n // 2
+    b = lg_n - a
+    rows, cols = _perm(b, values.device), _perm(a, values.device)
+    return _map_planes(values, lambda p: p.reshape(1 << a, 1 << b).T[rows][:, cols].reshape(-1))
 
 
 def geom_powers(g, n: int) -> np.ndarray:
@@ -86,11 +96,41 @@ def _root_rows_host(lg_n: int, inverse: bool = False) -> tuple:
     return tuple(rows)
 
 
+# The transforms' constants (root rows, coset shifts, fold coefficients) are
+# made on the device; up to this size they are cached, above it made at each
+# use (constants of 2^28 entries would hold GiB).
+CACHED_CONSTANTS_LOG = 22
+
+
+def device_constant(key, lg_n: int, device, make):
+    """`make()` on `device`, cached when lg_n <= CACHED_CONSTANTS_LOG."""
+    if lg_n <= CACHED_CONSTANTS_LOG:
+        return _on_device(key, device, make)
+    return make()
+
+
+def powers_device(g: int, n: int, device) -> torch.Tensor:
+    """[1, g, g^2, ..., g^(n-1)] on `device`, by doubling."""
+    out = torch.ones(1, dtype=torch.int64, device=device)
+    step = int(g) % host.P
+    while out.shape[0] < n:
+        out = torch.cat([out, gf.mul(out, step)])
+        step = step * step % host.P
+    return out[:n]
+
+
 def _root_rows(lg_n: int, device, inverse: bool = False) -> list:
-    return _on_device(
-        ("roots", lg_n, inverse), device,
-        lambda: [gf.from_u64(r, device) for r in _root_rows_host(lg_n, inverse)],
-    )
+    """Stage m's row is the first 2^(m-1) powers of the 2^m-th root of
+    unity: every 2^(n-m)-th entry of the last stage's row."""
+
+    def make():
+        g = host.pow_const(np.uint64(host.TWO_ADIC_GENERATOR), 1 << (host.TWO_ADICITY - lg_n))
+        if inverse:
+            g = host.pow_const(g, host.P - 2)
+        last = powers_device(int(g), 1 << max(lg_n - 1, 0), device)
+        return [last[:: 1 << (lg_n - lg_m)] for lg_m in range(1, lg_n + 1)]
+
+    return device_constant(("roots", lg_n, inverse), lg_n, device, make)
 
 
 def subgroup_gen(lg_n: int) -> int:
@@ -114,7 +154,9 @@ def _map_planes(values, fn):
 
 
 def _butterflies(values, lg_n: int, rows):
-    """DIT stages after bit-reversal; values base or GF2 of length 2^lg_n."""
+    """DIT stages after bit-reversal; values base or GF2 of length 2^lg_n.
+    Each stage writes its halves into one new array (the field ops run a
+    piece at a time on large arrays: `gf.CHUNK`)."""
     for lg_m in range(1, lg_n + 1):
         half = 1 << (lg_m - 1)
         om = rows[lg_m - 1][:half]
@@ -123,7 +165,10 @@ def _butterflies(values, lg_n: int, rows):
             v = plane.reshape(-1, 2 * half)
             u = v[:, :half]
             t = gf.mul(v[:, half:], om)
-            return torch.cat([gf.add(u, t), gf.sub(u, t)], dim=1).reshape(-1)
+            out = torch.empty_like(v)
+            out[:, :half] = gf.add(u, t)
+            out[:, half:] = gf.sub(u, t)
+            return out.reshape(-1)
 
         values = _map_planes(values, stage)
     return values
@@ -160,10 +205,8 @@ def coset_fft(values, shift: int):
     """Evaluations over shift * H: scale by shift powers, then fft."""
     n = values.shape[0]
     lg_n = n.bit_length() - 1
-    sp = _on_device(
-        ("shift", shift, n), values.device,
-        lambda: gf.from_u64(_shift_powers_host(int(shift), n), values.device),
-    )
+    sp = device_constant(("shift", shift, n), lg_n, values.device,
+                         lambda: powers_device(int(shift), n, values.device))
     return fft(_map_planes(values, lambda p: gf.mul(p, sp)), lg_n)
 
 
@@ -176,8 +219,9 @@ def interpolate_over_hypercube(values):
 
         def step(plane):
             v = plane.reshape(-1, 2 * half)
-            lo = v[:, :half]
-            return torch.cat([lo, gf.sub(v[:, half:], lo)], dim=1).reshape(-1)
+            out = v.clone()
+            out[:, half:] = gf.sub(v[:, half:], v[:, :half])
+            return out.reshape(-1)
 
         values = _map_planes(values, step)
     return values

@@ -2,8 +2,10 @@
 included, with no host read, as the JAX package's `sumcheck/fused.py`.
 
 `prove_device(vp, dt)` absorbs [n, max_degree] and proves `vp` against the
-session `dt`. On a CUDA session the MLEs are stacked into one (m, 2^n)
-extension array (two int64 planes) and `csrc/sumcheck.cu` runs the rounds:
+session `dt`. On a CUDA session the MLEs are laid end to end in one
+extension array (two int64 planes), each row at its own length (a row
+shorter than 2^n stands for its tiling over the high variables and is
+read modulo its length), and `csrc/sumcheck.cu` runs the rounds:
 while the rows are longer than 2^(TAIL_LOG + 1), each round is a grid-wide
 `round_kernel` (fold the previous challenge, form the message) and a
 one-block `finish_kernel` (sum the message, absorb it, squeeze the next
@@ -22,6 +24,7 @@ XLA's compiles, and the messages are the same without it.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -41,10 +44,11 @@ TAIL_LOG = 14
 MAX_DEGREE = 5  # the main path's largest: the maxpool zerocheck
 
 # Launches of each kernel since the last reset (plain ints; callers reset),
-# and the shape of the CUDA sumcheck with the most stacked rows since then
-# (num_vars, rows, the products' factor lists, degree; callers reset).
+# and the shape of the CUDA sumcheck with the most stacked entries since
+# then (num_vars, rows, each row's log-length, the products' factor lists,
+# degree; callers reset).
 LAUNCHES = {"sumcheck_round": 0, "sumcheck_finish": 0, "sumcheck_tail": 0}
-LARGEST = {"num_vars": 0, "rows": 0, "factors": [], "degree": 0}
+LARGEST = {"num_vars": 0, "rows": 0, "row_vars": [], "entries": 0, "factors": [], "degree": 0}
 
 _LIB = None
 _CACHE: dict = {}
@@ -55,9 +59,9 @@ def _lib():
     if _LIB is None:
         lib = kernels.library()
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.dp_sumcheck_round.argtypes = [i, p, p, p, p, i, ll, p, p, p, i, p, p, p, p]
+        lib.dp_sumcheck_round.argtypes = [i, p, p, p, p, i, p, i, ll, p, p, p, i, p, p, p, p]
         lib.dp_sumcheck_finish.argtypes = [i, p, ll, i, i, p, p, p, p]
-        lib.dp_sumcheck_tail.argtypes = [i, p, p, p, p, i, ll, i, i, p, i, p, p, p, p, p, p, p, p]
+        lib.dp_sumcheck_tail.argtypes = [i, p, p, p, p, i, p, ll, i, i, p, i, p, p, p, p, p, p, p, p]
         lib.dp_sumcheck_tail_config.argtypes = [i] + [ctypes.POINTER(ctypes.c_int)] * 3
         for fn in (lib.dp_sumcheck_round, lib.dp_sumcheck_finish, lib.dp_sumcheck_tail,
                    lib.dp_sumcheck_tail_config):
@@ -103,13 +107,79 @@ def coefficients(vp: VirtualPolynomial, device) -> GF2:
     return GF2(c.a0.contiguous(), c.a1.contiguous())
 
 
-def stack_planes(vp: VirtualPolynomial):
-    """The MLEs as two fresh contiguous (m, 2^n) int64 planes (a0, a1)."""
+@dataclasses.dataclass
+class Stacked:
+    """The rows of a sumcheck laid end to end for the kernels: the first
+    buffer's planes (a0, a1), each row's word (offset << 6 | log-length,
+    csrc/sumcheck.cu), the rows' log-lengths and offsets, and the longest
+    row's length. `second()` makes the other buffer (room for every row
+    folded once) when the rounds start."""
+
+    first: tuple
+    meta: torch.Tensor
+    row_vars: list
+    offsets: list
+    length: int
+
+    @property
+    def rows(self) -> int:
+        return len(self.row_vars)
+
+    def row(self, i: int) -> GF2:
+        """Row i's place in the first buffer, a GF2 view."""
+        o, n = self.offsets[i], 1 << self.row_vars[i]
+        return GF2(self.first[0][o : o + n], self.first[1][o : o + n])
+
+    def second(self) -> tuple:
+        half = torch.empty((2, self.first[0].numel() // 2), dtype=torch.int64, device=self.first[0].device)
+        return half[0], half[1]
+
+
+def _layout(row_vars: list, device, planes=None) -> Stacked:
+    """Rows of 2^row_vars[i] entries end to end (a row of one entry takes
+    two places, so that the second buffer's place is offset / 2) in
+    `planes`, or in new empty ones."""
+    offsets, off = [], 0
+    for lg in row_vars:
+        offsets.append(off)
+        off += max(2, 1 << lg)
+    if planes is None:
+        planes = torch.empty((2, off), dtype=torch.int64, device=device)
+    words = tuple((o << 6) | lg for o, lg in zip(offsets, row_vars))
+    meta = _cached(("meta", words, str(device)), lambda: torch.tensor(words, dtype=torch.int64).to(device))
+    return Stacked(first=(planes[0], planes[1]), meta=meta, row_vars=list(row_vars), offsets=offsets,
+                   length=1 << max(row_vars))
+
+
+def empty_stack(row_vars: list, device) -> Stacked:
+    """Empty planes for rows of 2^row_vars[i] entries, to be filled through
+    `Stacked.row`: a caller that builds its rows in place keeps no second
+    copy of them (`prove_device`'s `stacked`)."""
+    return _layout(row_vars, device)
+
+
+def stack_planes(vp: VirtualPolynomial) -> Stacked:
+    """The MLEs' rows end to end, each at its own length, in fresh planes."""
     rows = [gf.to_ext(m) for m in vp.mles]
-    width = 1 << vp.num_vars
-    a0 = torch.cat([r.a0.reshape(-1, width) for r in rows])
-    a1 = torch.cat([r.a1.reshape(-1, width) for r in rows])
-    return a0, a1
+    row_vars = [r.shape[1].bit_length() - 1 for r in rows for _ in range(r.shape[0])]
+    if min(row_vars) > 0:  # no row of one entry: the rows are the planes, one copy each
+        planes = [torch.cat([getattr(r, a).reshape(-1) for r in rows]) for a in ("a0", "a1")]
+        return _layout(row_vars, rows[0].device, planes)
+    st = _layout(row_vars, rows[0].device)
+    for i, (r, k) in enumerate((r, k) for r in rows for k in range(r.shape[0])):
+        st.row(i).a0.copy_(r.a0[k])
+        st.row(i).a1.copy_(r.a1[k])
+    return st
+
+
+def row_words(m: int, length: int, drop: int, device) -> tuple[torch.Tensor, int]:
+    """The words of m rows of `length` that have had `drop` folds, end to end
+    in the buffer that holds them, and the entries the other buffer needs:
+    a caller that starts the kernels part way through a sumcheck (timing)."""
+    scale = 2 if drop & 1 else 1
+    lg = length.bit_length() - 1 + drop
+    words = torch.tensor([((i * length * scale) << 6) | lg for i in range(m)], dtype=torch.int64).to(device)
+    return words, m * length * scale * 2 if drop & 1 else m * length // 2
 
 
 def _check(degree: int, device) -> None:
@@ -123,11 +193,12 @@ def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def round_cuda(src, dst, m: int, length: int, chals, rnd: int, n: int, fidx, coeffs: GF2,
+def round_cuda(src, dst, meta, m: int, drop: int, length: int, chals, rnd: int, n: int, fidx, coeffs: GF2,
                partials, degree: int) -> int:
-    """round_kernel on rows of `length` in src (a0, a1): fold by challenge
-    rnd - 1 of chals (2, n) into dst (skipped when rnd == 0; dst None),
-    partial messages into `partials`. Returns the number of blocks."""
+    """round_kernel on the m rows in src (a0, a1) after `drop` folds (placed
+    by `meta`, the longest `length` long): fold by challenge rnd - 1 of
+    chals (2, n) into dst (skipped when rnd == 0; dst None), partial
+    messages into `partials`. Returns the number of blocks."""
     _check(degree, src[0].device)
     lib = _lib()
     fold = rnd > 0
@@ -142,7 +213,7 @@ def round_cuda(src, dst, m: int, length: int, chals, rnd: int, n: int, fidx, coe
     with torch.cuda.device(src[0].device):
         err = lib.dp_sumcheck_round(
             degree, src[0].data_ptr(), src[1].data_ptr(),
-            _ptr(dst[0]) if fold else None, _ptr(dst[1]) if fold else None, m, length,
+            _ptr(dst[0]) if fold else None, _ptr(dst[1]) if fold else None, m, meta.data_ptr(), drop, length,
             _ptr(r0), _ptr(r1), fidx.data_ptr(), fidx.shape[0], coeffs.a0.data_ptr(),
             coeffs.a1.data_ptr(), partials.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
@@ -180,13 +251,13 @@ def tail_config(degree: int) -> dict:
     return {"blocks": blocks.value, "threads": threads.value, "blocks_per_sm": per_sm.value}
 
 
-def tail_cuda(cur, other, m: int, length: int, rnd0: int, n: int, fidx, coeffs: GF2, msgs,
+def tail_cuda(cur, other, meta, m: int, length: int, rnd0: int, n: int, fidx, coeffs: GF2, msgs,
               chals, state, finals, degree: int) -> None:
     """tail_kernel, one cooperative launch over the card: rounds rnd0..n-1
-    on rows of `length` in cur (folding first by challenge rnd0 - 1 when
-    rnd0 > 0), ping-ponging with `other` (room for rows of length / 2); both
-    are overwritten. The last fold goes into finals (2, m). Raises if the
-    card refuses the grid."""
+    on the m rows in cur (rounds before rnd0 - 1 folded in, placed by
+    `meta`, the longest `length` long; folding first by challenge rnd0 - 1
+    when rnd0 > 0), ping-ponging with `other`; both are overwritten. The
+    last fold goes into finals (2, m). Raises if the card refuses the grid."""
     _check(degree, state.device)
     lib = _lib()
     if n - rnd0 < 1 or length != 1 << (n - rnd0 + (1 if rnd0 else 0)):
@@ -197,7 +268,7 @@ def tail_cuda(cur, other, m: int, length: int, rnd0: int, n: int, fidx, coeffs: 
         scratch = torch.empty(blocks * 2 * (degree + 1) + 2, dtype=torch.int64, device=state.device)
         err = lib.dp_sumcheck_tail(
             degree, cur[0].data_ptr(), cur[1].data_ptr(), other[0].data_ptr(),
-            other[1].data_ptr(), m, length, rnd0, n, fidx.data_ptr(), fidx.shape[0],
+            other[1].data_ptr(), m, meta.data_ptr(), length, rnd0, n, fidx.data_ptr(), fidx.shape[0],
             coeffs.a0.data_ptr(), coeffs.a1.data_ptr(), msgs.data_ptr(), chals.data_ptr(),
             state.data_ptr(), finals.data_ptr(), scratch.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
@@ -206,48 +277,54 @@ def tail_cuda(cur, other, m: int, length: int, rnd0: int, n: int, fidx, coeffs: 
     LAUNCHES["sumcheck_tail"] += 1
 
 
-def prove_rounds_cuda(vp: VirtualPolynomial, dt, n: int, degree: int):
+def prove_rounds_cuda(vp: VirtualPolynomial, dt, n: int, degree: int, st: Stacked | None = None):
     """The n >= 1 rounds by the kernels on a CUDA session (after [n, degree]
-    is absorbed): (msgs GF2 (n, degree + 1), chals GF2 (n,), finals GF2 (m,))."""
+    is absorbed), on `st` (the MLEs' rows laid out already; overwritten) or
+    on a fresh copy of the rows: (msgs GF2 (n, degree + 1), chals GF2 (n,),
+    finals GF2 (m,))."""
     dev = dt.device
-    s0, s1 = stack_planes(vp)
-    m, length = s0.shape
+    st = stack_planes(vp) if st is None else st
+    m, length = st.rows, st.length
     fidx = factor_index(vp, degree, dev)
     coeffs = coefficients(vp, dev)
-    if m > LARGEST["rows"]:
-        LARGEST.update(num_vars=n, rows=m, factors=[list(f) for _, f in vp.products], degree=degree)
+    entries = st.first[0].numel()
+    if entries > LARGEST["entries"]:
+        LARGEST.update(num_vars=n, rows=m, row_vars=list(st.row_vars), entries=entries,
+                       factors=[list(f) for _, f in vp.products], degree=degree)
     msgs = torch.empty((2, n, degree + 1), dtype=torch.int64, device=dev)
     chals = torch.empty((2, n), dtype=torch.int64, device=dev)
     finals = torch.empty((2, m), dtype=torch.int64, device=dev)
-    half = torch.empty((2, m * (length // 2)), dtype=torch.int64, device=dev)
-    cur, other = (s0, s1), (half[0], half[1])
+    cur, other = st.first, st.second()
     above = max(0, n - TAIL_LOG)
     if above:
         partials = torch.empty(
             -(-(length // 2) // _lib().threads) * 2 * (degree + 1), dtype=torch.int64, device=dev
         )
     for rnd in range(above):
-        blocks = round_cuda(cur, other, m, length, chals, rnd, n, fidx, coeffs, partials, degree)
+        drop = max(rnd - 1, 0)
+        blocks = round_cuda(cur, other, st.meta, m, drop, length, chals, rnd, n, fidx, coeffs, partials, degree)
         finish_cuda(partials, blocks, rnd, n, msgs, chals, dt.state, degree)
         if rnd:
             cur, other, length = other, cur, length // 2
-    tail_cuda(cur, other, m, length, above, n, fidx, coeffs, msgs, chals, dt.state, finals, degree)
+    tail_cuda(cur, other, st.meta, m, length, above, n, fidx, coeffs, msgs, chals, dt.state, finals, degree)
     return GF2(msgs[0], msgs[1]), GF2(chals[0], chals[1]), GF2(finals[0], finals[1])
 
 
-def prove_device(vp: VirtualPolynomial, dt) -> ProverOutput:
+def prove_device(vp: VirtualPolynomial, dt, stacked: Stacked | None = None) -> ProverOutput:
     """Sumcheck against a session transcript; the output holds device values
-    (lower with glue.materialize)."""
+    (lower with glue.materialize). `stacked`: the MLEs' rows already laid
+    out by `empty_stack`, in order (the MLEs views of its rows); the CUDA
+    rounds overwrite it."""
     if dt.device.type == "cpu":
         return prover.prove_device(vp, dt)
     n, degree = vp.num_vars, vp.max_degree
     dt.append_constants([n, degree])
     if n == 0:
-        stacked = prover._stacked(vp, degree)
         proof = SumcheckProof(point=gf.ext_zeros((0,), dt.device),
                               round_messages=gf.ext_zeros((0, degree + 1), dt.device))
+        stacked = prover._stacked(vp, degree)
         return ProverOutput(proof=proof, final_evals=stacked[: vp.num_mles].reshape(-1))
-    msgs, chals, finals = prove_rounds_cuda(vp, dt, n, degree)
+    msgs, chals, finals = prove_rounds_cuda(vp, dt, n, degree, stacked)
     return ProverOutput(proof=SumcheckProof(point=chals, round_messages=msgs), final_evals=finals)
 
 

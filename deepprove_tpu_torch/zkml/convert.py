@@ -22,15 +22,19 @@ from . import quantization as Q
 from .float_model import FAdd, FConv, FDense, FFlatten, FloatModel, FMaxpool, FRelu
 from .layers.activation import Gelu, Relu
 from .layers.add import Add
+from .layers.concat_matmul import ConcatMatMul, Permute
 from .layers.convolution import Convolution
 from .layers.dense import Dense
 from .layers.embeddings import Embeddings, Positional
 from .layers.layernorm import LayerNorm
+from .layers.logits import Logits
 from .layers.matmul import MatMul
 from .layers.pad import Pad2D
 from .layers.pooling import Maxpool2D
+from .layers.qkv import QKV
 from .layers.requant import Requant
-from .layers.shape_ops import Flatten
+from .layers.shape_ops import Flatten, Reshape
+from .layers.softmax import Softmax
 from .model import Edge, Model
 from .quantization import RequantSpec
 
@@ -81,7 +85,10 @@ def model_from_graph(nodes, num_inputs: int = 1, device="cuda") -> Model:
       input_shape, stride; matmul: two witness inputs, or one and right,
       bias (MatMul.new_constant); embeddings, positional:
       table; requant: multiplier, bits (RequantSpec.from_multiplier); gelu:
-      s_in, s_out; layernorm: gamma_f, beta_f, eps, s_in (LayerNorm.from_float)."""
+      s_in, s_out; layernorm: gamma_f, beta_f, eps, s_in (LayerNorm.from_float);
+      qkv: ws, bs (three each); permute: perm, in_shape; concat_matmul:
+      transpose_b; softmax: s_in, max_size, temperature, seq, domain_max;
+      reshape: shape; logits."""
     dev = device_mod.resolve(device)
     make = {
         "dense": lambda f: Dense(matrix=_tensor(f["matrix"], dev), bias=_tensor(f["bias"], dev)),
@@ -97,6 +104,13 @@ def model_from_graph(nodes, num_inputs: int = 1, device="cuda") -> Model:
         "gelu": lambda f: Gelu(s_in=f["s_in"], s_out=f["s_out"]),
         "layernorm": lambda f: LayerNorm.from_float(f["gamma_f"], f["beta_f"], eps=f["eps"], s_in=f["s_in"],
                                                     device=dev),
+        "qkv": lambda f: QKV(ws=[_tensor(w, dev) for w in f["ws"]], bs=[_tensor(b, dev) for b in f["bs"]]),
+        "permute": lambda f: Permute(tuple(f["perm"]), tuple(f["in_shape"])),
+        "concat_matmul": lambda f: ConcatMatMul(transpose_b=f["transpose_b"]),
+        "softmax": lambda f: Softmax(s_in=f["s_in"], max_size=f["max_size"], temperature=f["temperature"],
+                                     seq=f["seq"], domain_max=f["domain_max"]),
+        "reshape": lambda f: Reshape(tuple(f["shape"])),
+        "logits": lambda f: Logits(),
     }
     model = Model(num_inputs=num_inputs)
     for kind, fields, edges in nodes:

@@ -22,7 +22,7 @@ from ...lookup import logup
 from ...poly import mle as mle_mod
 from ...transcript.session import DeviceTranscript
 from ..commit import CommitmentProver, same_poly_prove_device
-from ..lookup_context import generate_lookup_witnesses
+from ..lookup_context import generate_lookup_witnesses, table_columns_padded
 from ..model import InferenceTrace
 
 
@@ -115,30 +115,35 @@ class Prover:
 
     def _prove_tables(self) -> list:
         """One logup proof per table size, ascending: a lone table alone, equal
-        sizes grouped in sorted table order."""
+        sizes grouped in sorted table order. A table's columns are made when
+        its group is proved and dropped after."""
         groups = {}
         for tw in self.table_witness:
-            groups.setdefault(int(tw.column_evals[0].shape[0]), []).append(tw)
+            groups.setdefault(int(tw.multiplicities.shape[0]), []).append(tw)
+        self.table_witness = []
         table_proofs = []
         for size in sorted(groups):
-            tws = groups[size]
+            tws = groups.pop(size)
             if len(tws) == 1:
                 proof = logup.batch_prove_device(tws[0].get_logup_input(self.challenge_storage), self.dt)
             else:
                 instances = [
-                    (tw.column_evals, tw.multiplicities, *self.challenge_storage.get(tw.table_type.name()))
+                    (table_columns_padded(tw.table_type, self.device), tw.multiplicities,
+                     *self.challenge_storage.get(tw.table_type.name()))
                     for tw in tws
                 ]
                 proof = logup.batch_prove_grouped_tables(instances, self.dt)
+                del instances
             off, commits = 0, []
             for tw in tws:
-                claims = proof.output_claims[off : off + 1 + len(tw.column_evals)]
+                n_cols = tw.table_type.num_columns()
+                claims = proof.output_claims[off : off + 1 + n_cols]
                 comm, poly = tw.commits[0]
                 self.commit_prover.add_witness_claim((comm, poly), claims[0])
                 for claim in tw.table_type.table_claims(claims):
                     self.commit_prover.add_table_claim(tw.table_type, claim)
                 commits.append(comm.commitment)
-                off += 1 + len(tw.column_evals)
+                off += 1 + n_cols
             table_proofs.append(
                 TableProof(table_types=[tw.table_type for tw in tws], multiplicity_commits=commits,
                            lookup=proof)

@@ -17,7 +17,7 @@ import torch
 from ...lookup.logup import Claim
 from .. import quantization as Q
 from ..commit import SamePolyProof, same_poly_prove_device, same_poly_verify
-from ..lookup_context import COLUMN_SEPARATOR, LogUpWitness, TableType, count_elements, gelu_rows, gelu_table_type
+from ..lookup_context import COLUMN_SEPARATOR, LogUpWitness, TableType, gelu_rows, gelu_table_type
 from ..tensor import Tensor, pad_vec_pow2
 
 
@@ -42,13 +42,13 @@ class Relu:
     def gen_lookup_witness(self, node_id, ctx, step_data):
         inp = pad_vec_pow2(step_data.inputs[0].flat())
         out = pad_vec_pow2(step_data.outputs[0].flat())
-        counts = count_elements(inp + out * COLUMN_SEPARATOR)
+        looked_up = inp + out * COLUMN_SEPARATOR
         cols = [Q.to_field(inp), Q.to_field(out)]
         wit = LogUpWitness(
             polys=cols,
             column_evals=cols, columns_per_instance=2, table_type=TableType("relu"),
         )
-        return [wit], {TableType("relu"): counts}
+        return [wit], {TableType("relu"): looked_up}
 
     def prove(self, node_id, ctx, last_claims, step_data, prover):
         return _prove_lookup_activation(node_id, last_claims, prover)
@@ -111,10 +111,10 @@ class Gelu:
         out = pad_vec_pow2(step_data.outputs[0].flat())
         # padded inputs are 0: their output is the table's row for 0
         out[flat.numel() :] = self._table_out(out.device)[-(Q.MIN - 1)]
-        counts = count_elements(inp + out * COLUMN_SEPARATOR)
+        looked_up = inp + out * COLUMN_SEPARATOR
         cols = [Q.to_field(inp), Q.to_field(out)]
         wit = LogUpWitness(polys=cols, column_evals=cols, columns_per_instance=2, table_type=self.table_type)
-        return [wit], {self.table_type: counts}
+        return [wit], {self.table_type: looked_up}
 
     def prove(self, node_id, ctx, last_claims, step_data, prover):
         return _prove_lookup_activation(node_id, last_claims, prover)

@@ -45,7 +45,6 @@ from ..lookup_context import (
     LAYERNORM_SCALE_FACTOR,
     LogUpWitness,
     TableType,
-    count_elements,
     inv_sqrt_rows,
 )
 from ..tensor import Tensor, ceil_log2, next_pow2, pad_vec_pow2
@@ -165,8 +164,8 @@ class LayerNorm:
             if j == self.n_chunks - 1 and self.top_chunk_scalar_log:
                 c = c * (1 << self.top_chunk_scalar_log)
             chunks.append(c)
-        inv_counts = count_elements(inv_in + inv_out * COLUMN_SEPARATOR)
-        range_counts = count_elements(torch.cat(chunks))
+        inv_looked_up = inv_in + inv_out * COLUMN_SEPARATOR
+        range_looked_up = torch.cat(chunks)
         inv_cols = [Q.to_field(inv_in), Q.to_field(inv_out)]
         chunk_cols = [Q.to_field(c) for c in chunks]
         wits = [
@@ -174,7 +173,7 @@ class LayerNorm:
             LogUpWitness(polys=chunk_cols, column_evals=chunk_cols, columns_per_instance=1,
                          table_type=TableType("range")),
         ]
-        return wits, {self.table_type: inv_counts, TableType("range"): range_counts}
+        return wits, {self.table_type: inv_looked_up, TableType("range"): range_looked_up}
 
     def prove(self, node_id, ctx, last_claims, step_data, prover):
         dt = prover.dt

@@ -29,7 +29,7 @@ from ...poly import mle as mle_mod
 from ...sumcheck import VirtualPolynomial, prove_device
 from ...sumcheck import verify as sumcheck_verify
 from .. import quantization as Q
-from ..lookup_context import LogUpWitness, TableType, count_elements
+from ..lookup_context import LogUpWitness, TableType
 from ..tensor import Tensor, ceil_log2, next_pow2
 
 ExtPair = tuple[int, int]
@@ -92,14 +92,14 @@ class Maxpool2D:
     def gen_lookup_witness(self, node_id, ctx, step_data):
         out = step_data.outputs[0].data
         cols = self.diffs(step_data.inputs[0].data, out)
-        counts = count_elements(torch.cat(cols))
+        looked_up = torch.cat(cols)
         col_fields = [Q.to_field(c) for c in cols]
         out_field = Q.to_field(_pad3(out).reshape(-1))
         wit = LogUpWitness(
             polys=col_fields + [out_field], column_evals=col_fields, columns_per_instance=1,
             table_type=TableType("range"),
         )
-        return [wit], {TableType("range"): counts}
+        return [wit], {TableType("range"): looked_up}
 
     def prove(self, node_id, ctx, last_claims, step_data, prover):
         dt = prover.dt

@@ -21,7 +21,7 @@ from ...poly import mle as mle_mod
 from ...sumcheck import VirtualPolynomial, prove_device
 from ...sumcheck import verify as sumcheck_verify
 from .. import quantization as Q
-from ..lookup_context import COLUMN_SEPARATOR, LogUpWitness, TableType, count_elements
+from ..lookup_context import COLUMN_SEPARATOR, LogUpWitness, TableType
 from ..quantization import RequantSpec
 from ..tensor import Tensor, next_pow2
 
@@ -61,8 +61,8 @@ class Requant:
         range_mask = (1 << Q.BIT_LEN) - 1
         chunks = [(masked >> (j * Q.BIT_LEN)) & range_mask for j in range(shift // Q.BIT_LEN)]
 
-        range_counts = count_elements(torch.cat(chunks))
-        clamp_counts = count_elements(clamp_in + clamp_out * COLUMN_SEPARATOR)
+        range_looked_up = torch.cat(chunks)
+        clamp_looked_up = clamp_in + clamp_out * COLUMN_SEPARATOR
         clamp_cols = [Q.to_field(clamp_in), Q.to_field(clamp_out)]
         chunk_cols = [Q.to_field(c) for c in chunks]
         wits = [
@@ -75,7 +75,7 @@ class Requant:
                 columns_per_instance=1, table_type=TableType("range"),
             ),
         ]
-        return wits, {TableType("range"): range_counts, self._clamp_table(): clamp_counts}
+        return wits, {TableType("range"): range_looked_up, self._clamp_table(): clamp_looked_up}
 
     def shared_lookup_layout(self):
         """(instances, columns per instance, table) per witness: what the

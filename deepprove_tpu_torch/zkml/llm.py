@@ -1,14 +1,18 @@
-"""GPT-2: configuration, weights, float calibration and the provable
-feed-forward half of a block, as in the JAX package's `zkml/llm.py`.
+"""GPT-2: configuration, weights, float calibration, the provable graph
+and the generation loop, as in the JAX package's `zkml/llm.py`.
 
 The host part is numpy, copied: the synthetic weights, the float forward
 that calibrates every activation's scale, and the quantization helpers
-(float64, round half to even). `GPT2Builder._ffn` appends one block's
-feed-forward half to a Model on the builder's device: LayerNorm ->
-Requant -> MatMul (up, with bias) -> Requant -> Gelu -> MatMul (down) ->
-Requant -> Add (the residual) -> Requant. The attention half, the whole
-graph (`build`), the generation loop (`Driver`) and the GGUF loader arrive
-with the port's attention slice (ROADMAP queue 1 item 4).
+(float64, round half to even). `GPT2Builder.build` makes the whole graph
+on the builder's device: Embeddings -> Positional, then a block's
+attention half (LayerNorm -> Requant -> QKV -> three Requants -> Permute
+-> ConcatMatMul (Q K^T) -> Softmax -> ConcatMatMul (P V) -> Permute ->
+Reshape -> Requant -> MatMul -> Requant -> Add (the residual) -> Requant)
+and its feed-forward half (LayerNorm -> Requant -> MatMul (up, with bias)
+-> Requant -> Gelu -> MatMul (down) -> Requant -> Add -> Requant), then
+the final LayerNorm, the lm_head and Logits. `Driver` runs (and proves)
+one full-context inference a token. The GGUF loader is not ported yet
+(ROADMAP queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -22,15 +26,21 @@ from .. import device as device_mod
 from . import quantization as Q
 from .layers.activation import Gelu
 from .layers.add import Add
+from .layers.concat_matmul import ConcatMatMul, Permute
+from .layers.embeddings import Embeddings, Positional
 from .layers.layernorm import LayerNorm
+from .layers.logits import Logits
 from .layers.matmul import MatMul
+from .layers.qkv import QKV
 from .layers.requant import Requant
-from .lookup_context import LAYERNORM_OUTPUT_SCALE_FACTOR
+from .layers.shape_ops import Reshape
+from .layers.softmax import Softmax
+from .lookup_context import LAYERNORM_OUTPUT_SCALE_FACTOR, OUTPUT_SCALE_FACTOR
 from .model import Edge, Model
 from .quantization import RequantSpec
-from .tensor import next_pow2
+from .tensor import Tensor, ceil_log2, next_pow2
 
-_LATER = "arrives with the port's attention slice (ROADMAP queue 1 item 4)"
+_LATER = "is not ported yet: the GGUF parser arrives later (ROADMAP queue 1 item 4)"
 
 
 @dataclasses.dataclass
@@ -141,8 +151,37 @@ def _ln_out_scale(gamma_f, s_in: float) -> float:
 
 
 def _requant(m: Model, src: int, s_before: float, s_after: float, bits: int) -> int:
+    return _requant_wire(m, src, 0, s_before, s_after, bits)
+
+
+def _requant_wire(m: Model, src: int, wire: int, s_before: float, s_after: float, bits: int) -> int:
     spec = RequantSpec.from_multiplier(s_before / s_after, bits)
-    return m.add_node(Requant(spec=spec), [Edge(node=src, index=0)])
+    return m.add_node(Requant(spec=spec), [Edge(node=src, index=wire)])
+
+
+def _embed_head_cols(w: np.ndarray, h: int, d: int, h_pad: int, d_pad: int) -> np.ndarray:
+    """(in, h d) -> (in, h_pad d_pad): head hh's columns at hh d_pad + j,
+    the pad columns zero (so pad outputs are exactly 0)."""
+    out = np.zeros((w.shape[0], h_pad * d_pad), dtype=np.int64)
+    for hh in range(h):
+        out[:, hh * d_pad : hh * d_pad + d] = w[:, hh * d : (hh + 1) * d]
+    return out
+
+
+def _embed_head_vec(b: np.ndarray, h: int, d: int, h_pad: int, d_pad: int) -> np.ndarray:
+    out = np.zeros(h_pad * d_pad, dtype=np.int64)
+    for hh in range(h):
+        out[hh * d_pad : hh * d_pad + d] = b[hh * d : (hh + 1) * d]
+    return out
+
+
+def _embed_head_rows(w: np.ndarray, h: int, d: int, h_pad: int, d_pad: int) -> np.ndarray:
+    """(h d, out) -> (h_pad d_pad, out) with zero rows at the pad positions:
+    the projection ignores the head layout's padding."""
+    out = np.zeros((h_pad * d_pad, w.shape[1]), dtype=np.int64)
+    for hh in range(h):
+        out[hh * d_pad : hh * d_pad + d, :] = w[hh * d : (hh + 1) * d, :]
+    return out
 
 
 class GPT2Builder:
@@ -204,10 +243,85 @@ class GPT2Builder:
         return s
 
     def build(self, calibration_tokens: np.ndarray):
-        raise NotImplementedError(f"GPT2Builder.build {_LATER}")
+        """The whole graph, scales calibrated on `calibration_tokens`:
+        returns (Model, meta), meta with the seq, the logits' scale and the
+        device."""
+        w, c, seq = self.w, self.c, self.seq
+        sc = self._calibrate(np.asarray(calibration_tokens, dtype=np.int64))
+        m = Model(num_inputs=1)
+        # the embeddings and positions share one scale
+        s_emb = max(_mx(w.wte), _mx(w.wpe)) / Q.MAX
+        n_emb = m.add_node(Embeddings(table=self._tensor(_q(w.wte, s_emb))), [Edge(node=None, index=0)])
+        x_id = m.add_node(Positional(table=self._tensor(_q(w.wpe[:seq], s_emb))), [Edge(node=n_emb, index=0)])
+        s_x = s_emb
+        for i, blk in enumerate(w.blocks):
+            x_id, s_x = self._attention(m, x_id, s_x, blk, i, sc)
+            x_id, s_x = self._ffn(m, x_id, s_x, blk, i, sc)
+        # the final norm, the lm_head and the argmax
+        ln = LayerNorm.from_float(w.lnf_g, w.lnf_b, c.eps, s_x, device=self.device)
+        n_ln = m.add_node(ln, [Edge(node=x_id, index=0)])
+        s_lnf = sc["lnf"] / Q.MAX
+        n_rq = _requant(m, n_ln, _ln_out_scale(w.lnf_g, s_x), s_lnf, ln.output_bitsize())
+        s_w = _mx(w.lm_head) / Q.MAX
+        n_mm = m.add_node(MatMul.new_constant(self._tensor(_q(w.lm_head, s_w))), [Edge(node=n_rq, index=0)])
+        s_logits = sc["logits"] / Q.MAX
+        n_rq2 = _requant(m, n_mm, s_lnf * s_w, s_logits, 2 * (Q.BIT_LEN - 1) + ceil_log2(next_pow2(c.emb)) + 1)
+        m.add_node(Logits(), [Edge(node=n_rq2, index=0)])
+        return m, {"seq": seq, "s_logits": s_logits, "device": self.device}
 
-    def _attention(self, m, x_id, s_x, blk, i, sc):
-        raise NotImplementedError(f"GPT2Builder._attention {_LATER}")
+    def _attention(self, m: Model, x_id: int, s_x: float, blk: GPT2Block, i: int, sc: dict) -> tuple[int, float]:
+        """Append block i's attention half after node x_id (scale s_x),
+        x_id feeding both the LayerNorm and the residual Add; returns (the
+        last node, its scale). The q, k and v weight columns sit in an
+        (h_pad, d_pad) power-of-two head layout with zero pad columns and
+        biases, and the projection has zero rows there."""
+        c, seq = self.c, self.seq
+        h, d = c.heads, c.head_dim
+        h_pad, d_pad = next_pow2(h), next_pow2(d)
+        ln = LayerNorm.from_float(blk.ln1_g, blk.ln1_b, c.eps, s_x, device=self.device)
+        n_ln = m.add_node(ln, [Edge(node=x_id, index=0)])
+        s_h = sc[f"b{i}.ln1"] / Q.MAX
+        n_h = _requant(m, n_ln, _ln_out_scale(blk.ln1_g, s_x), s_h, ln.output_bitsize())
+
+        # one weight scale for the three projections of the shared input
+        s_w = max(_mx(blk.qkv_w[:, col * c.emb : (col + 1) * c.emb]) / Q.MAX for col in range(3))
+        ws, bs = [], []
+        for col in range(3):
+            cols = slice(col * c.emb, (col + 1) * c.emb)
+            ws.append(self._tensor(_embed_head_cols(_q(blk.qkv_w[:, cols], s_w), h, d, h_pad, d_pad)))
+            bs.append(self._tensor(_embed_head_vec(_q(blk.qkv_b[cols], s_h * s_w), h, d, h_pad, d_pad)))
+        qkv = QKV(ws=ws, bs=bs)
+        n_qkv = m.add_node(qkv, [Edge(node=n_h, index=0)])
+        heads, scales = {}, {}
+        for wire, name in enumerate(("q", "k", "v")):
+            scales[name] = sc[f"b{i}.{name}"] / Q.MAX
+            n_rq = _requant_wire(m, n_qkv, wire, s_h * s_w, scales[name], qkv.output_bitsize())
+            # (seq, h_pad d_pad) as (seq, h_pad, d_pad) -> (h_pad, seq, d_pad)
+            heads[name] = m.add_node(Permute((1, 0, 2), (seq, h_pad, d_pad)), [Edge(node=n_rq, index=0)])
+
+        n_qk = m.add_node(ConcatMatMul(transpose_b=True),
+                          [Edge(node=heads["q"], index=0), Edge(node=heads["k"], index=0)])
+        s_att = scales["q"] * scales["k"]
+        att_mx = sc[f"b{i}.att"] / (s_att if s_att else 1.0)
+        sm = Softmax(s_in=s_att, max_size=max(64, seq), temperature=1.0 / float(np.sqrt(d)), seq=seq,
+                     domain_max=int(max(1, abs(att_mx)) * 2))
+        n_sm = m.add_node(sm, [Edge(node=n_qk, index=0)])
+        n_fm = m.add_node(ConcatMatMul(), [Edge(node=n_sm, index=0), Edge(node=heads["v"], index=0)])
+        # (h_pad, seq, d_pad) -> (seq, h_pad, d_pad) = (seq, h_pad d_pad)
+        n_pb = m.add_node(Permute((1, 0, 2), (h_pad, seq, d_pad)), [Edge(node=n_fm, index=0)])
+        n_pb = m.add_node(Reshape((seq, h_pad * d_pad)), [Edge(node=n_pb, index=0)])
+        s_fm = scales["v"] / OUTPUT_SCALE_FACTOR  # the probabilities' scale times the values'
+        s_ao = sc[f"b{i}.attn_out"] / Q.MAX
+        n_rq = _requant(m, n_pb, s_fm, s_ao, 2 * (Q.BIT_LEN - 1) + ceil_log2(OUTPUT_SCALE_FACTOR * seq) + 2)
+        s_w = _mx(blk.proj_w) / Q.MAX
+        mmp = MatMul.new_constant(self._tensor(_embed_head_rows(_q(blk.proj_w, s_w), h, d, h_pad, d_pad)),
+                                  self._tensor(_q(blk.proj_b, s_ao * s_w)))
+        n_mm = m.add_node(mmp, [Edge(node=n_rq, index=0)])
+        # the projection back to the residual stream's scale s_x
+        n_rqp = _requant(m, n_mm, s_ao * s_w, s_x, mmp.output_bitsize())
+        n_add = m.add_node(Add(), [Edge(node=x_id, index=0), Edge(node=n_rqp, index=0)])
+        s_res = sc[f"b{i}.res1"] / Q.MAX
+        return _requant(m, n_add, s_x, s_res, Q.BIT_LEN + 2), s_res
 
     def _ffn(self, m: Model, x_id: int, s_x: float, blk: GPT2Block, i: int, sc: dict) -> tuple[int, float]:
         """Append block i's feed-forward half to `m` after node x_id (scale
@@ -235,8 +349,43 @@ class GPT2Builder:
         return _requant(m, n_add, s_x, s_res, Q.BIT_LEN + 2), s_res
 
 
+@dataclasses.dataclass
+class GenerationStep:
+    token: int
+    trace: object
+    proof: object = None
+
+
 class Driver:
-    """The token loop: one full-context inference (and proof) a token."""
+    """The token loop: one full-context inference (and, asked, its proof) a
+    token, the argmax read at the last active position. Runs on the
+    builder's device (`meta["device"]`)."""
 
     def __init__(self, model: Model, meta: dict, ctx=None):
-        raise NotImplementedError(f"Driver {_LATER}")
+        self.model = model
+        self.meta = meta
+        self.ctx = ctx
+
+    def step(self, tokens: np.ndarray, prove: bool = False) -> GenerationStep:
+        from ..transcript import BasicTranscript
+        from .iop import Prover
+
+        seq, dev = self.meta["seq"], self.meta["device"]
+        toks = np.zeros(seq, dtype=np.int64)
+        n_active = min(len(tokens), seq)
+        toks[:n_active] = np.asarray(tokens, dtype=np.int64)[-seq:][:n_active]
+        trace = self.model.run([Tensor(torch.from_numpy(toks).to(dev))], device=dev)
+        token = int(trace.outputs[0].data.reshape(-1)[n_active - 1])
+        proof = None
+        if prove:
+            assert self.ctx is not None, "proving requires a Context"
+            proof = Prover(self.ctx, BasicTranscript(b"m2vec"), device=dev).prove(trace)
+        return GenerationStep(token=token, trace=trace, proof=proof)
+
+    def generate(self, prompt: list[int], n_tokens: int, prove: bool = False):
+        tokens, steps = list(prompt), []
+        for _ in range(n_tokens):
+            st = self.step(np.asarray(tokens, dtype=np.int64), prove=prove)
+            tokens.append(st.token)
+            steps.append(st)
+        return tokens, steps

@@ -4,12 +4,19 @@
 Each table has (a) a merged Element column `in + 2^32 out` against which
 the looked-up values are counted and (b) its base-field columns, which the
 table proof proves and the verifier evaluates in closed form. Tables sort
-by kind, then parameters. The port has relu, range, clamping, gelu and
-inv_sqrt; softmax, error and zero arrive with attention. The gelu and
-inv_sqrt rows are built in float64 numpy on the host, as the JAX package
-builds them (a rounding difference would change the table), and their
-output columns are committed at setup: their claims go to the batched
-opening (`table_claims`).
+by kind, then parameters. The columns are made on the device: arange,
+clamp and the table's rule for relu, range, clamping and zero; the gelu,
+inv_sqrt and softmax rows and the error column are built in float64 numpy
+on the host, as the JAX package builds them (a rounding difference would
+change the table), and copied once. Their committed columns (the output of
+gelu, inv_sqrt and softmax, error's only column) are committed at setup:
+their claims go to the batched opening (`table_claims`).
+
+The lookups are counted on the device too: each node hands over its
+looked-up merged values, a value maps to its row by an offset where the
+table's input column is an arange, else by a search in the sorted merged
+column, and one scatter-add a table counts them. A value that is not in
+its table fails one check a table (the table's one read of the device).
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 
 from ..fields import gf, host
 from . import quantization as Q
+from .tensor import ceil_log2
 
 COLUMN_SEPARATOR = 1 << 32
 ExtPair = tuple[int, int]
@@ -31,8 +39,10 @@ _ORDER = {
     "relu": 0, "gelu": 1, "range": 2, "clamping": 3,
     "softmax": 4, "error": 5, "zero": 6, "inv_sqrt": 7,
 }
-_LATER = ("softmax", "error", "zero")
 
+LOG_SCALE_FACTOR = 24
+SCALE_FACTOR = 1 << LOG_SCALE_FACTOR
+OUTPUT_SCALE_FACTOR = 1 << 12
 LAYERNORM_SCALE_FACTOR = 1 << 24
 LAYERNORM_OUTPUT_SCALE_FACTOR = 1 << 10
 
@@ -45,19 +55,64 @@ def _f32(bits: int) -> float:
     return struct.unpack("<f", struct.pack("<I", bits))[0]
 
 
-def _host_field(x: np.ndarray) -> np.ndarray:
-    """int64 Elements -> canonical Goldilocks u64 (negatives wrap mod p)."""
-    a = np.asarray(x, dtype=np.int64)
-    return np.where(a < 0, np.uint64(host.P) - (-a).astype(np.uint64), a.astype(np.uint64))
+def _ident(pt) -> ExtPair:
+    """The MLE of the row index at `pt`: sum_i 2^i pt_i."""
+    acc = (0, 0)
+    for i, p in enumerate(pt):
+        acc = host.ext_add(acc, host.ext_mul(p, ((1 << i) % host.P, 0)))
+    return acc
+
+
+def _prefix_eq(point, bound: int) -> ExtPair:
+    """sum_{x < bound} eq(point, x) over x in [0, 2^len(point)), little-endian:
+    for every set bit k of the bound, the rows that agree with it above k
+    and have a 0 at k, whose lower bits sum eq to 1."""
+    if bound >= 1 << len(point):
+        return (1, 0)
+    one = (1, 0)
+    acc, above = (0, 0), one
+    for k in range(len(point) - 1, -1, -1):
+        r = point[k]
+        if (bound >> k) & 1:
+            acc = host.ext_add(acc, host.ext_mul(above, host.ext_sub(one, r)))
+            above = host.ext_mul(above, r)
+        else:
+            above = host.ext_mul(above, host.ext_sub(one, r))
+    return acc
+
+
+def _eq_at(point, x: int) -> ExtPair:
+    """eq(point, bits of x)."""
+    acc = (1, 0)
+    for k, r in enumerate(point):
+        acc = host.ext_mul(acc, r if (x >> k) & 1 else host.ext_sub((1, 0), r))
+    return acc
+
+
+def clamping_out_eval(size: int, point) -> ExtPair:
+    """The MLE at `point` of the clamping table's output column
+    clip(x, MIN, MAX), x in [-2^(size-1), 2^(size-1)), without its rows: MIN
+    times the eq mass of the rows below MIN, the rows in range one by one,
+    MAX times the eq mass of the rows above MAX (O(size) each bound)."""
+    n, mx, p = 1 << size, 1 << (size - 1), host.P
+    lo = min(max(mx + Q.MIN, 0), n)  # the first row whose value is >= MIN
+    hi = min(max(mx + Q.MAX + 1, 0), n)  # the first row whose value is > MAX
+    below = _prefix_eq(point, lo)
+    above = host.ext_sub((1, 0), _prefix_eq(point, hi))
+    acc = host.ext_add(host.ext_mul((Q.MIN % p, 0), below), host.ext_mul((Q.MAX % p, 0), above))
+    for x in range(lo, hi):
+        acc = host.ext_add(acc, host.ext_mul(((x - mx) % p, 0), _eq_at(point, x)))
+    return acc
 
 
 @total_ordering
 @dataclasses.dataclass(frozen=True)
 class TableType:
-    """kind in {relu, gelu, range, clamping, inv_sqrt} (the JAX package's
-    softmax, error and zero sort here but raise); params is a kind-specific
-    tuple: the clamping bit size; gelu's input and output scales and
-    inv_sqrt's epsilon as float32 bit patterns, inv_sqrt's shift."""
+    """kind in {relu, gelu, range, clamping, softmax, error, zero, inv_sqrt};
+    params is a kind-specific tuple: the clamping and zero bit sizes;
+    gelu's input and output scales, softmax's inverse temperature and
+    inv_sqrt's epsilon as float32 bit patterns; softmax's table bits and
+    cutoff; error's quantised one and allowable error; inv_sqrt's shift."""
 
     kind: str
     params: tuple = ()
@@ -65,110 +120,137 @@ class TableType:
     def __lt__(self, other):
         return (_ORDER[self.kind], self.params) < (_ORDER[other.kind], other.params)
 
-    def _check(self):
-        if self.kind in _LATER:
-            raise NotImplementedError(
-                f"lookup table {self.kind!r} arrives with the port's attention slice (ROADMAP queue 1 item 4)"
-            )
-
     def name(self) -> str:
-        self._check()
         if self.kind == "clamping":
             return f"Clamping: {self.params[0]}"
-        if self.kind == "gelu":
-            return "gelu"
+        if self.kind == "zero":
+            return f"Zero: {self.params[0]}"
+        if self.kind == "error":
+            return f"Error Table - quantised one: {self.params[0]}, allowable error: {self.params[1]}"
+        if self.kind == "softmax":
+            return f"Softmax - temperature: {_f32(self.params[0])}"
         if self.kind == "inv_sqrt":
             return f"InverseSQRT - normalisation: {_f32(self.params[0])}, shift: {self.params[1]}"
-        return {"relu": "Relu", "range": "Range"}[self.kind]
+        return {"relu": "Relu", "range": "Range", "gelu": "gelu"}[self.kind]
 
-    def table_columns(self) -> tuple[np.ndarray, list[np.ndarray]]:
-        """(merged Element column, [base-field u64 columns])."""
-        self._check()
+    def row_offset(self) -> int | None:
+        """The input of the first row where the input column is an arange
+        (a value's row is its input minus this), None for the error table."""
+        if self.kind in ("range", "zero", "softmax"):
+            return 0
+        if self.kind in ("relu", "gelu"):
+            return Q.MIN - 1
+        if self.kind == "clamping":
+            return -(1 << (self.params[0] - 1))
+        if self.kind == "inv_sqrt":
+            return -(1 << (2 * (Q.BIT_LEN - 1)))
+        return None
+
+    def _rows(self, device):
+        """The input column and the output column (None for the one-column
+        range and error tables) as int64 Elements on `device`."""
+        if self.kind == "error":
+            return torch.from_numpy(error_rows(self.params)).to(device), None
+        if self.kind in ("gelu", "inv_sqrt", "softmax"):
+            rows = {"gelu": gelu_rows, "inv_sqrt": inv_sqrt_rows, "softmax": softmax_rows}[self.kind]
+            i, out = (torch.from_numpy(a).to(device) for a in rows(self.params))
+            return i, out
+        n = 1 << self.multiplicity_poly_vars()
+        i = torch.arange(self.row_offset(), self.row_offset() + n, dtype=torch.int64, device=device)
         if self.kind == "range":
-            i = np.arange(0, 1 << Q.BIT_LEN, dtype=np.int64)
-            return i.copy(), [_host_field(i)]
+            return i, None
         if self.kind == "relu":
-            i = np.arange(Q.MIN - 1, Q.MAX + 1, dtype=np.int64)
-            out = np.maximum(i, 0)
-        elif self.kind == "clamping":
-            mx = 1 << (self.params[0] - 1)
-            i = np.arange(-mx, mx, dtype=np.int64)
-            out = np.clip(i, Q.MIN, Q.MAX)
-        else:
-            i, out = (gelu_rows if self.kind == "gelu" else inv_sqrt_rows)(self.params)
-        return i + out * COLUMN_SEPARATOR, [_host_field(i), _host_field(out)]
+            return i, i.clamp(min=0)
+        if self.kind == "clamping":
+            return i, i.clamp(Q.MIN, Q.MAX)
+        return i, (i == 0).to(torch.int64)
+
+    def merged_column(self, device="cpu") -> torch.Tensor:
+        """The merged Element column `in + 2^32 out` on `device`."""
+        i, out = self._rows(device)
+        return i if out is None else i + out * COLUMN_SEPARATOR
+
+    def table_columns(self, device="cpu") -> tuple[torch.Tensor, list[torch.Tensor]]:
+        """(merged int64 Element column, [base-field columns]) on `device`."""
+        i, out = self._rows(device)
+        if out is None:
+            return i, [Q.to_field(i)]
+        return i + out * COLUMN_SEPARATOR, [Q.to_field(i), Q.to_field(out)]
 
     def num_columns(self) -> int:
-        self._check()
-        return 1 if self.kind == "range" else 2
+        return 1 if self.kind in ("range", "error") else 2
 
     def multiplicity_poly_vars(self) -> int:
-        self._check()
-        if self.kind == "clamping":
+        if self.kind in ("clamping", "zero"):
             return self.params[0]
+        if self.kind == "softmax":
+            return self.params[1]
+        if self.kind == "error":
+            return ceil_log2(2 * self.params[1])
         if self.kind == "inv_sqrt":
             return 2 * (Q.BIT_LEN - 1) + 1
         return Q.BIT_LEN
 
     def committed_columns(self, device):
-        """The columns the PCS commits at setup, as a field tensor on
-        `device`: the output column of gelu and inv_sqrt; None otherwise."""
-        self._check()
-        if self.kind not in ("gelu", "inv_sqrt"):
+        """The column the PCS commits at setup, as a field tensor on
+        `device`: the output column of gelu, softmax and inv_sqrt, the error
+        table's only column; None otherwise."""
+        if self.kind not in ("gelu", "softmax", "inv_sqrt", "error"):
             return None
-        return gf.from_u64(self.table_columns()[1][1], device)
+        return self.table_columns(device)[1][-1]
 
     def generate_challenge(self, transcript):
         """The table's column-separation challenge: a host pair from a host
         transcript, a device GF2 () from a session."""
-        self._check()
-        if self.kind == "range":
+        if self.kind in ("range", "error"):
             dev = getattr(transcript, "device", None)
             return (1, 0) if dev is None else gf.ext_ones((), dev)
-        label = {"relu": b"Relu", "clamping": b"Clamping", "gelu": b"GELU", "inv_sqrt": b"InverseSQRT"}
+        label = {"relu": b"Relu", "clamping": b"Clamping", "gelu": b"GELU", "inv_sqrt": b"InverseSQRT",
+                 "zero": b"Zero", "softmax": b"Softmax"}
         return transcript.get_and_append_challenge(label[self.kind])
 
     def evaluate_table_columns(self, point: list[ExtPair]) -> list[ExtPair]:
-        """The verifier's evaluations of the table columns at `point`."""
-        self._check()
-
-        def ident(pt):
-            acc = (0, 0)
-            for i, p in enumerate(pt):
-                acc = host.ext_add(acc, host.ext_mul(p, ((1 << i) % host.P, 0)))
-            return acc
-
+        """The verifier's evaluations of the table columns at `point`, in
+        closed form; a committed column has none (its claim is opened)."""
+        assert len(point) == self.multiplicity_poly_vars()
+        if self.kind == "error":
+            return []
         if self.kind == "range":
-            assert len(point) == Q.BIT_LEN
-            return [ident(point)]
+            return [_ident(point)]
+        if self.kind == "softmax":
+            return [_ident(point)]
+        first = host.ext_sub(_ident(point), ((-self.row_offset()) % host.P, 0))
         if self.kind in ("gelu", "inv_sqrt"):
-            # rows run from the table's least input; the output is committed
-            assert len(point) == self.multiplicity_poly_vars()
-            return [host.ext_sub(ident(point), ((1 << (len(point) - 1)) % host.P, 0))]
+            return [first]
+        if self.kind == "zero":
+            prod = (1, 0)
+            for p in point:
+                prod = host.ext_mul(prod, host.ext_sub((1, 0), p))
+            return [_ident(point), prod]
         if self.kind == "relu":
-            assert len(point) == Q.BIT_LEN
-            first = host.ext_sub(ident(point), ((1 << (Q.BIT_LEN - 1)) % host.P, 0))
             top = point[-1]
             second = (0, 0)
             for i, p in enumerate(point[:-1]):
                 second = host.ext_add(second, host.ext_mul(host.ext_mul(p, ((1 << i) % host.P, 0)), top))
             return [first, second]
-        size = self.params[0]
-        assert len(point) == size
-        first = host.ext_sub(ident(point), ((1 << (size - 1)) % host.P, 0))
-        # the output column has no closed form: evaluate its MLE on the host
-        _, cols = self.table_columns()
-        return [first, host.mle_eval_v(cols[1], point)]
+        return [first, clamping_out_eval(self.params[0], point)]
 
     def table_claims(self, claims: list) -> list:
-        """Claims that go to the commitment accumulator: the committed output
-        column's (the last claim) of gelu and inv_sqrt."""
-        self._check()
-        return [claims[-1]] if self.kind in ("gelu", "inv_sqrt") else []
+        """Claims that go to the commitment accumulator: the committed
+        column's (the last claim)."""
+        return [claims[-1]] if self.kind in ("gelu", "softmax", "inv_sqrt", "error") else []
 
     @staticmethod
     def inv_sqrt(eps: float, range_check_bits: int) -> "TableType":
         return TableType("inv_sqrt", (_f32_bits(eps), range_check_bits))
+
+    @staticmethod
+    def softmax(inv_temperature: float, table_size: int, bkm: int) -> "TableType":
+        return TableType("softmax", (_f32_bits(inv_temperature), table_size, bkm))
+
+    @staticmethod
+    def error(quant_one: int, allowable_error: int) -> "TableType":
+        return TableType("error", (quant_one, allowable_error))
 
 
 def gelu_table_type(s_in: float, s_out: float) -> TableType:
@@ -199,6 +281,28 @@ def inv_sqrt_rows(params) -> tuple[np.ndarray, np.ndarray]:
     return i, out
 
 
+def softmax_rows(params) -> tuple[np.ndarray, np.ndarray]:
+    """The softmax exp rows j in [0, 2^size): out = round(2^12 exp(-j 2^16 /
+    (2^24 T))) in float32, 0 from the cutoff bkm on."""
+    inv_temp, table_size, bkm = _f32(params[0]), params[1], params[2]
+    j = np.arange(0, 1 << table_size, dtype=np.int64)
+    prod = np.int64(1 << (LOG_SCALE_FACTOR - 8)) * j
+    f = np.exp(-(prod.astype(np.float32)) / (np.float32(SCALE_FACTOR) * np.float32(inv_temp)))
+    out = np.round(f * np.float32(OUTPUT_SCALE_FACTOR)).astype(np.int64)
+    return j, np.where(prod >= bkm, 0, out)
+
+
+def error_rows(params) -> np.ndarray:
+    """The error table's one column: quant_one - err ..= quant_one + err,
+    cut or zero-padded to 2^ceil_log2(2 err) rows."""
+    quant_one, err = params
+    vals = np.arange(quant_one - err, quant_one + err + 1, dtype=np.int64)
+    size = 1 << ceil_log2(2 * err)
+    out = np.zeros(size, dtype=np.int64)
+    out[: min(size, vals.size)] = vals[:size]
+    return out
+
+
 @dataclasses.dataclass
 class ChallengeStorage:
     constant_challenge: ExtPair
@@ -219,12 +323,14 @@ class ChallengeStorage:
 class LogUpWitness:
     """Polynomials to commit and column evaluations (base tensors on the
     device). `generate_lookup_witnesses` commits the polys of every witness
-    at once and fills in `commits`."""
+    at once and fills in `commits`. A table's witness holds its
+    multiplicities and no columns: `table_columns_padded` makes them when
+    its proof runs."""
 
     polys: list
-    column_evals: list
+    column_evals: list | None
     columns_per_instance: int
-    table_type: TableType
+    table_type: object
     multiplicities: torch.Tensor | None = None  # table witnesses only
     commits: list | None = None  # [(CommitmentWithWitness, poly)], in `polys` order
 
@@ -233,75 +339,91 @@ class LogUpWitness:
 
         const_c, sep_c = storage.get(self.table_type.name())
         if self.multiplicities is not None:
-            return logup.LogUpInput.new_table(self.column_evals, self.multiplicities, const_c, sep_c)
+            cols = table_columns_padded(self.table_type, self.multiplicities.device)
+            return logup.LogUpInput.new_table(cols, self.multiplicities, const_c, sep_c)
         return logup.LogUpInput.new_lookup(self.column_evals, const_c, sep_c, self.columns_per_instance)
 
 
-def count_elements(values: torch.Tensor) -> dict:
-    """{value: occurrences} of an int64 tensor (one device-to-host copy)."""
-    vals, counts = torch.unique(values.reshape(-1), return_counts=True)
-    return dict(zip(vals.tolist(), counts.tolist()))
+def _pad_rows(col: torch.Tensor) -> torch.Tensor:
+    """A column that is not a power of two padded by repeating its rows."""
+    n = col.shape[0]
+    np2 = 1 << ceil_log2(n)
+    return col if np2 == n else col[torch.arange(np2, device=col.device) % n]
+
+
+def table_columns_padded(tt, device) -> list:
+    """A table's field columns, padded to a power of two (`_pad_rows`)."""
+    return [_pad_rows(c) for c in tt.table_columns(device)[1]]
+
+
+def _bincount(rows: torch.Tensor, n: int) -> torch.Tensor:
+    """Occurrences of each row in [0, n): an integer scatter-add (torch's
+    bincount reads the device for the largest row)."""
+    return torch.zeros(n, dtype=torch.int64, device=rows.device).index_add_(0, rows, torch.ones_like(rows))
+
+
+def count_lookups(tt, values: torch.Tensor, device) -> torch.Tensor:
+    """The multiplicity column of table `tt` (a field tensor on `device`)
+    for the looked-up merged values `values`. Every row holding a value
+    gets its count, divided in the field by the value's repetitions where
+    the table was padded to a power of two by repeating rows."""
+    merged = tt.merged_column(device)
+    n = merged.shape[0]
+    merged = _pad_rows(merged)
+    np2 = merged.shape[0]
+    values = values.reshape(-1).to(device)
+    offset = tt.row_offset()
+    if offset is not None:
+        assert np2 == n, "an arange-shaped table is a power of two"
+        # the row's input is the value's low 32 bits, sign extended
+        low = ((values + (1 << 31)) & ((1 << 32) - 1)) - (1 << 31)
+        rows = low - offset
+        inside = (rows >= 0) & (rows < np2)
+        rows = rows.clamp(0, np2 - 1)
+        bad = ~inside | (merged[rows] != values)
+        counts = _bincount(rows, np2)
+    else:
+        ordered, _ = torch.sort(merged)
+        pos = torch.searchsorted(ordered, values).clamp(max=np2 - 1)
+        bad = ordered[pos] != values
+        first = torch.searchsorted(ordered, merged)
+        counts = _bincount(pos, np2)[first]
+        if np2 != n:
+            reps = torch.searchsorted(ordered, merged, right=True) - first
+            counts = gf.mul(counts, gf.inv(reps))
+    if bool(bad.any()):
+        raise AssertionError(f"lookup value {int(values[bad][0])} not in table {tt.name()}")
+    return counts
 
 
 def generate_lookup_witnesses(trace, ctx, transcript):
     """Walk the trace forward collecting each node's lookup witnesses and
-    element counts, build every table's multiplicities, commit the polys of
-    all the witnesses together (`commit_many`), then derive the
-    challenge storage from `transcript` (a session, on the prover's side).
-    Returns (storage, {node id: [LogUpWitness]}, [table LogUpWitness])."""
-    element_count: dict = {}
+    looked-up values, count every table's multiplicities on the device,
+    commit the polys of all the witnesses together (`commit_many`), then
+    derive the challenge storage from `transcript` (a session, on the
+    prover's side). Returns (storage, {node id: [LogUpWitness]}, [table
+    LogUpWitness])."""
+    looked_up: dict = {}
     logup_witnesses: dict = {}
     for node_id in ctx.forward_order():
         op = ctx.steps_info[node_id].op
         if not hasattr(op, "gen_lookup_witness"):
             continue
-        witnesses, counts = op.gen_lookup_witness(node_id, ctx, trace.steps[node_id])
+        witnesses, values = op.gen_lookup_witness(node_id, ctx, trace.steps[node_id])
         logup_witnesses[node_id] = witnesses
-        for tt, cmap in counts.items():
-            agg = element_count.setdefault(tt, {})
-            for k, v in cmap.items():
-                agg[k] = agg.get(k, 0) + v
+        for tt, v in values.items():
+            looked_up.setdefault(tt, []).append(v.reshape(-1))
 
     table_witnesses = []
-    for tt in sorted(element_count):
-        counts = element_count[tt]
-        merged, cols = tt.table_columns()
-        n = len(merged)
-        np2 = 1 << max(0, (n - 1).bit_length())
-        if np2 != n:
-            # a table that is not a power of two is padded by repeating rows;
-            # each row's multiplicity is count / repetitions in the field
-            pad_idx = np.arange(np2) % n
-            merged = merged[pad_idx]
-            cols = [c[pad_idx] for c in cols]
-        table_set = set(merged.tolist())
-        for k in counts:
-            assert k in table_set, f"lookup value {k} not in table {tt.name()}"
-        mult = np.zeros(np2, dtype=np.uint64)
-        if np2 != n:
-            vals, occ = np.unique(merged, return_counts=True)
-            occ_map = dict(zip(vals.tolist(), occ.tolist()))
-            for i, val in enumerate(merged.tolist()):
-                c = counts.get(val)
-                if c:
-                    mult[i] = (c % host.P) * pow(occ_map[val], host.P - 2, host.P) % host.P
-        else:
-            for i, val in enumerate(merged.tolist()):
-                mult[i] = counts.get(val, 0)
-        device = ctx.device
-        mult_gf = gf.from_u64(mult, device)
+    for tt in sorted(looked_up):
+        mult = count_lookups(tt, torch.cat(looked_up[tt]), ctx.device)
         table_witnesses.append(
-            LogUpWitness(
-                polys=[mult_gf],
-                column_evals=[gf.from_u64(c, device) for c in cols],
-                columns_per_instance=len(cols),
-                table_type=tt,
-                multiplicities=mult_gf,
-            )
+            LogUpWitness(polys=[mult], column_evals=None, columns_per_instance=tt.num_columns(),
+                         table_type=tt, multiplicities=mult)
         )
     every = [w for ws in logup_witnesses.values() for w in ws] + table_witnesses
     comms = iter(ctx.commitment_ctx.commit_many([p for w in every for p in w.polys]))
     for w in every:
         w.commits = [(next(comms), p) for p in w.polys]
-    storage = ChallengeStorage.initialise(list(element_count), transcript)
+    storage = ChallengeStorage.initialise(list(looked_up), transcript)
     return storage, logup_witnesses, table_witnesses

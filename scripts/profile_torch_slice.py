@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Where one prove of Dense-4M, of the CIFAR-10 LeNet or of GPT-2's
-feed-forward path spends its time on a GPU.
+"""Where one prove of Dense-4M, of the CIFAR-10 LeNet, of GPT-2's
+feed-forward path or of GPT-2-124M's generation step spends its time on a
+GPU.
 
-    python3 scripts/profile_torch_slice.py [mlp] [cnn] [gpt2_ffn] [kernel]
+    python3 scripts/profile_torch_slice.py [mlp] [cnn] [gpt2_ffn] [gpt2] [kernel]
 
 With no argument mlp, cnn and kernel run. `mlp` builds Dense-4M
 (bench.py's build_mlp_4m: six Dense -> Requant -> ReLU blocks, dims
-[4, 1024 x5, 3]), `cnn` the LeNet and `gpt2_ffn` GPT-2 at width 128 from
+[4, 1024 x5, 3]), `cnn` the LeNet, `gpt2_ffn` GPT-2 at width 128 from
 its Positional node through the feed-forward halves of blocks 0 and 1,
-each as chip_smoke.py's phase of that name builds it; each runs setup and
-a warm prove, then prints:
+and `gpt2` GPT-2-124M's whole graph cut to two blocks (Embeddings to
+Logits, the tokens its input), each as chip_smoke.py's phase of that
+name builds it; each runs setup and a warm prove, then prints:
   1. `components`: inclusive wall time and calls of the prove's main steps
      (the lookup witnesses and their commits, the consolidated lookup
      proofs, the table proofs, the layer proves, the sumchecks, the
@@ -17,7 +19,8 @@ a warm prove, then prints:
      clearing, iFFT, hadamard and FFT sumchecks, its two delegation
      chains, its phi tables, the maxpools, and the FFT rows of inference),
      for GPT-2 also each LayerNorm, MatMul, Gelu, Add and Positional
-     prove and the fan-out merges),
+     prove and the fan-out merges, and for `gpt2` each Embeddings, QKV,
+     ConcatMatMul, Permute, Softmax and Logits prove),
      each wrapped (in this script only) with a device synchronize on entry
      and exit, so queued device work is charged to the step that queued it;
   2. `profile`: one prove under torch.profiler (CPU and CUDA activity):
@@ -227,6 +230,9 @@ def build_path(cs, path):
         return cs.quantized_lenet(R.LENET, *R.lenet_float_ops(R.LENET, np.random.default_rng(0)))
     if path == "gpt2_ffn":
         return cs.gpt2_ffn_model()[:2]
+    if path == "gpt2":
+        model, _, _, toks = cs.gpt2_model()
+        return model, toks
     layers, x_np = cs.build_chain(cs.MLP_4M_DIMS, 0)
     return mlp_chain_from_arrays(layers, device="cuda"), x_np
 
@@ -241,8 +247,8 @@ def profile_path(cs, path) -> None:
     from deepprove_tpu_torch.zkml import commit
     from deepprove_tpu_torch.zkml.iop import Context, Prover
     from deepprove_tpu_torch.zkml.iop import prover as iop_prover
-    from deepprove_tpu_torch.zkml.layers import (activation, add, convolution, dense, embeddings, layernorm, matmul,
-                                                 pooling, requant)
+    from deepprove_tpu_torch.zkml.layers import (activation, add, concat_matmul, convolution, dense, embeddings,
+                                                 layernorm, logits, matmul, pooling, qkv, requant, softmax)
     from deepprove_tpu_torch.zkml.tensor import Tensor
 
     model, x_np = build_path(cs, path)
@@ -268,6 +274,12 @@ def profile_path(cs, path) -> None:
         (activation.Gelu, "prove", "gelu_layer"),
         (add.Add, "prove", "add_layer"),
         (embeddings.Positional, "prove", "positional_layer"),
+        (embeddings.Embeddings, "prove", "embeddings_layer"),
+        (qkv.QKV, "prove", "qkv_layer"),
+        (concat_matmul.ConcatMatMul, "prove", "concat_matmul_layer"),
+        (concat_matmul.Permute, "prove", "permute_layer"),
+        (softmax.Softmax, "prove", "softmax_layer"),
+        (logits.Logits, "prove", "logits_layer"),
         (iop_prover, "same_poly_prove_device", "fanout_merges"),
         (commit.CommitmentProver, "prove", "commit_open"),
         (fused, "prove_device", "sumcheck"),
@@ -278,7 +290,8 @@ def profile_path(cs, path) -> None:
         (glue, "materialize", "materialize"),
     ]
     originals = [(o, n, _wrap(o, n, table, k)) for o, n, k in targets]
-    by_name = (dense, requant, pooling, logup, commit, sumcheck_pkg, matmul, layernorm)  # bound prove_device by name
+    by_name = (dense, requant, pooling, logup, commit, sumcheck_pkg, matmul, layernorm, embeddings, qkv, concat_matmul,
+               softmax, logits)  # bound prove_device by name
     for mod in by_name:
         mod.prove_device = fused.prove_device
     convolution.prove_device = fused.prove_device
@@ -383,10 +396,10 @@ def main(argv) -> int:
     for part in parts:
         if part == "kernel":
             kernel_part(cs)
-        elif part in ("mlp", "cnn", "gpt2_ffn"):
+        elif part in ("mlp", "cnn", "gpt2_ffn", "gpt2"):
             profile_path(cs, part)
         else:
-            raise SystemExit(f"unknown part {part!r}; choose from mlp, cnn, gpt2_ffn, kernel")
+            raise SystemExit(f"unknown part {part!r}; choose from mlp, cnn, gpt2_ffn, gpt2, kernel")
     return 0
 
 

@@ -208,17 +208,18 @@ def tail_share(lib, cs, rounds: int) -> dict:
     n, rows, products, degree = cs.sumcheck_cases()["batch_open_2^20"]
     tail_len = 1 << (rounds + 1)
     vp = cs.random_vp(rounds + 1, rows, products, 7, "cuda")  # rows of tail_len
-    s0, s1 = fused.stack_planes(vp)
-    m = s0.shape[0]
+    (s0, s1) = fused.stack_planes(vp).first
+    m = rows
     fidx, coeffs = fused.factor_index(vp, degree, "cuda"), fused.coefficients(vp, "cuda")
     chals = torch.randint(0, 1 << 62, (2, n), dtype=torch.int64, device="cuda")  # canonical
     state = DeviceTranscript.from_host(BasicTranscript(b"designs"), "cuda").state
-    half = torch.empty((2, m * tail_len // 2), dtype=torch.int64, device="cuda")
+    words, other = fused.row_words(m, tail_len, n - rounds - 1, "cuda")
+    half = torch.empty((2, other), dtype=torch.int64, device="cuda")
     msgs = torch.zeros((2, n, degree + 1), dtype=torch.int64, device="cuda")
     finals = torch.empty((2, m), dtype=torch.int64, device="cuda")
     # the work does not depend on the values: the tail runs again on what it left
-    tail_ms = events_ms(lambda: fused.tail_cuda((s0, s1), (half[0], half[1]), m, tail_len, n - rounds, n, fidx,
-                                                coeffs, msgs, chals, state, finals, degree))
+    tail_ms = events_ms(lambda: fused.tail_cuda((s0, s1), (half[0], half[1]), words, m, tail_len, n - rounds, n,
+                                                fidx, coeffs, msgs, chals, state, finals, degree))
     chain_msgs = torch.zeros((2, rounds, 3), dtype=torch.int64, device="cuda")
     chain_chals = torch.zeros((2, rounds), dtype=torch.int64, device="cuda")
     sponge_ms = events_ms(lambda: lib.dp_design_sponge_chain(state.data_ptr(), rounds, chain_msgs.data_ptr(),

@@ -63,7 +63,19 @@ def sumcheck_reference() -> dict:
 
 
 def basefold_reference(name: str) -> dict:
-    """Commit and open one of the two polys of `R.basefold_inputs` ("rs", "trivial")."""
+    """Commit and open one of the two polys of `R.basefold_inputs` ("rs",
+    "trivial"), or ("batch") batch-open the three of `R.basefold_batch_inputs`."""
+    if name == "batch":
+        polys, points = R.basefold_batch_inputs()
+        params = basefold.setup(max(R.BASEFOLD_BATCH_LOGS), **R.BASEFOLD_KW)
+        comms = [basefold.commit(params, gf.from_u64(p)) for p in polys]
+        evals = [basefold.BatchEvaluation(poly=i, point=i, value=host.mle_eval_v(p, pt))
+                 for i, (p, pt) in enumerate(zip(polys, points))]
+        proof = basefold.batch_open(params, [gf.from_u64(p) for p in polys], comms, points, evals,
+                                    BasicTranscript(R.BASEFOLD_LABEL))
+        basefold.batch_verify(params, [c.commitment for c in comms], points, evals, proof,
+                              BasicTranscript(R.BASEFOLD_LABEL))
+        return {"roots": [R.plain(c.commitment.root) for c in comms], "proof": R.plain(proof)}
     big, big_pt, small, small_pt = R.basefold_inputs()
     evals, pt = (big, big_pt) if name == "rs" else (small, small_pt)
     params = basefold.setup(R.BASEFOLD_MAX_LOG, **R.BASEFOLD_KW)
@@ -202,6 +214,11 @@ def jax_graph(case: dict) -> tuple:
     from deepprove_tpu.zkml.float_model import FAdd
     from deepprove_tpu.zkml.layers.activation import Gelu
     from deepprove_tpu.zkml.layers.add import Add
+    from deepprove_tpu.zkml.layers.concat_matmul import ConcatMatMul, Permute
+    from deepprove_tpu.zkml.layers.logits import Logits
+    from deepprove_tpu.zkml.layers.qkv import QKV
+    from deepprove_tpu.zkml.layers.shape_ops import Reshape
+    from deepprove_tpu.zkml.layers.softmax import Softmax
     from deepprove_tpu.zkml.layers.embeddings import Embeddings, Positional
     from deepprove_tpu.zkml.layers.layernorm import LayerNorm
     from deepprove_tpu.zkml.layers.matmul import MatMul
@@ -232,6 +249,13 @@ def jax_graph(case: dict) -> tuple:
         "requant": lambda f: Requant(spec=RequantSpec.from_multiplier(f["multiplier"], f["bits"])),
         "gelu": lambda f: Gelu(s_in=f["s_in"], s_out=f["s_out"]),
         "layernorm": lambda f: LayerNorm.from_float(f["gamma_f"], f["beta_f"], eps=f["eps"], s_in=f["s_in"]),
+        "qkv": lambda f: QKV(ws=list(f["ws"]), bs=list(f["bs"])),
+        "permute": lambda f: Permute(tuple(f["perm"]), tuple(f["in_shape"])),
+        "concat_matmul": lambda f: ConcatMatMul(transpose_b=f["transpose_b"]),
+        "softmax": lambda f: Softmax(s_in=f["s_in"], max_size=f["max_size"], temperature=f["temperature"],
+                                     seq=f["seq"], domain_max=f["domain_max"]),
+        "reshape": lambda f: Reshape(tuple(f["shape"])),
+        "logits": lambda f: Logits(),
     }
     model = Model(num_inputs=len(case["inputs"]))
     for kind, fields, edges in case["nodes"]:
@@ -256,13 +280,14 @@ def graph_reference(name: str, kw: dict) -> dict:
 
 PARTS = {
     "sumcheck": sumcheck_reference,
-    "basefold": lambda: {name: basefold_reference(name) for name in ("rs", "trivial")},
+    "basefold": lambda: {name: basefold_reference(name) for name in ("rs", "trivial", "batch")},
     "dense": dense_reference,
     "logup": lambda: {name: logup_reference(name) for name in R.LOGUP_CASES},
     "mlp": mlp_reference,
     "cnn": lambda: {name: cnn_reference(name) for name in R.CNN_CASES},
     "residual": lambda: {name: graph_reference(name, R.RESIDUAL_KW) for name in R.RESIDUAL_CASES},
     "transformer": lambda: {name: graph_reference(name, R.TRANSFORMER_KW) for name in R.TRANSFORMER_CASES},
+    "attention": lambda: {name: graph_reference(name, R.ATTENTION_KW) for name in R.ATTENTION_FROZEN},
     # the tiny GPT-2 graph, not in the frozen file (hours of XLA compiles)
     "gpt2_ffn": lambda: graph_reference(R.GPT2_CASE, R.TRANSFORMER_KW),
 }

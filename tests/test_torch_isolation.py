@@ -42,12 +42,14 @@ def test_importing_every_module_loads_no_jax():
                "deepprove_tpu_torch.sumcheck.fused", "deepprove_tpu_torch.zkml.layers.add",
                "deepprove_tpu_torch.zkml.layers.pad", "deepprove_tpu_torch.zkml.layers.matmul",
                "deepprove_tpu_torch.zkml.layers.layernorm", "deepprove_tpu_torch.zkml.layers.embeddings",
-               "deepprove_tpu_torch.zkml.llm"],
+               "deepprove_tpu_torch.zkml.llm", "deepprove_tpu_torch.zkml.layers.qkv",
+               "deepprove_tpu_torch.zkml.layers.concat_matmul", "deepprove_tpu_torch.zkml.layers.softmax",
+               "deepprove_tpu_torch.zkml.layers.logits"],
 )
 def test_the_walk_reaches_the_device_transcript_and_fused_sumcheck(module):
     """The module walk above covers the kernel modules of the device-resident
-    transcript and the fused sumcheck, and the residual and transformer
-    layers."""
+    transcript and the fused sumcheck, and the residual, transformer and
+    attention layers."""
     import pkgutil
 
     import deepprove_tpu_torch as p

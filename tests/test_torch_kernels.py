@@ -205,6 +205,7 @@ def test_cuda_permutation_matches_host_on_random_states(cuda_device):
 # with the tail from 10, whose first finish sums 1024 partials (more than
 # the kernel's threads, at the main path's degree 2 and the maxpool's 5);
 # LayerNorm's two sumchecks; then the edge shapes of torch_reference.SUMCHECK_EDGE_CASES
+# and its rows of their own lengths (SUMCHECK_RAGGED_CASES, a sixth entry)
 _SUMCHECK_CASES = {
     f"n7_degree_{d}_tail_{t}": (7, 5, [list(range(d)), [4]], d, t) for t in (10, 3) for d in range(1, 6)
 }
@@ -215,6 +216,7 @@ _SUMCHECK_CASES["n19_one_row_degree_5_tail_10"] = (19, 1, [[0, 0, 0, 0, 0], [0]]
 _SUMCHECK_CASES["layernorm_io_n12_tail_10"] = (12, 6, [[0, 1, 2, 3], [0, 1, 4, 3], [0, 5]], 4, 10)
 _SUMCHECK_CASES["layernorm_link_n12_tail_10"] = (12, 3, [[0, 1, 1], [0, 2, 2]], 3, 10)
 _SUMCHECK_CASES.update(R.SUMCHECK_EDGE_CASES)
+_SUMCHECK_CASES.update(R.SUMCHECK_RAGGED_CASES)
 
 
 @pytest.mark.cuda
@@ -224,15 +226,17 @@ def test_cuda_fused_sumcheck_matches_plain(cuda_device, monkeypatch, case):
     from deepprove_tpu_torch.transcript import BasicTranscript
     from deepprove_tpu_torch.transcript.session import DeviceTranscript
 
-    n, m, products, degree, tail_log = _SUMCHECK_CASES[case]
+    n, m, products, degree, tail_log, *row_vars = _SUMCHECK_CASES[case]
+    row_vars = row_vars[0] if row_vars else [n] * m
     # the case is well formed: its products index its rows and reach its degree
     assert max(len(f) for f in products) == degree and all(0 <= r < m for f in products for r in f)
     if tail_log is not None:
         monkeypatch.setattr(fused, "TAIL_LOG", tail_log)
     rng = np.random.default_rng(40 + len(case) + degree)
     vp = VirtualPolynomial.new(n)
-    rows = rng.integers(0, gf.P, size=(2, m, 1 << n), dtype=np.uint64)
-    vp.add_mle_rows(gf.GF2(gf.from_u64(rows[0], cuda_device), gf.from_u64(rows[1], cuda_device)))
+    for lg in row_vars:
+        row = rng.integers(0, gf.P, size=(2, 1 << lg), dtype=np.uint64)
+        vp.add_mle(gf.GF2(gf.from_u64(row[0], cuda_device), gf.from_u64(row[1], cuda_device)))
     for f in products:  # host-pair coefficients
         vp.add_product(tuple(int(v) for v in rng.integers(0, gf.P, size=2, dtype=np.uint64)), f)
     before = dict(fused.LAUNCHES)

@@ -165,21 +165,22 @@ def test_tables_and_challenges_match_jax_host_code():
     for t, jt in zip(types, jtypes):
         merged, cols = t.table_columns()
         j_merged, j_cols = jt.table_columns()
-        np.testing.assert_array_equal(merged, j_merged)
-        assert [c.tolist() for c in cols] == [np.asarray(c).tolist() for c in j_cols]
+        np.testing.assert_array_equal(merged.numpy(), j_merged)
+        assert [gf.to_u64(c).tolist() for c in cols] == [np.asarray(c).tolist() for c in j_cols]
         assert t.multiplicity_poly_vars() == jt.multiplicity_poly_vars()
         assert t.num_columns() == jt.num_columns()
         pt = [R._ext(rng) for _ in range(t.multiplicity_poly_vars())]
         assert t.evaluate_table_columns(pt) == jt.evaluate_table_columns(pt)
         # the closed forms are the columns' MLEs
-        assert t.evaluate_table_columns(pt) == [host.mle_eval_v(c, pt) for c in cols]
+        assert t.evaluate_table_columns(pt) == [host.mle_eval_v(gf.to_u64(c), pt) for c in cols]
     ours = LC.ChallengeStorage.initialise(types, BasicTranscript(b"tbl"))
     theirs = JLC.ChallengeStorage.initialise(jtypes, JaxTranscript(b"tbl"))
     assert (ours.constant_challenge, ours.challenge_map) == (
         theirs.constant_challenge, theirs.challenge_map
     )
-    with pytest.raises(NotImplementedError, match="attention slice"):
-        LC.TableType("softmax", (1, 2, 3)).table_columns()
+    # the attention slice's exp table too
+    sm = LC.TableType.softmax(1.0, 5, 1 << 20)
+    np.testing.assert_array_equal(sm.table_columns()[0].numpy(), JLC.TableType(sm.kind, sm.params).table_columns()[0])
 
 
 def test_requant_spec_matches_jax():
@@ -202,9 +203,18 @@ class _PaddedTable:
     def name(self):
         return "six"
 
-    def table_columns(self):
-        vals = np.array([10, 11, 12, 13, 14, 15], dtype=np.int64)
-        return vals.copy(), [vals.astype(np.uint64)]
+    def table_columns(self, device="cpu"):
+        vals = self.merged_column(device)
+        return vals.clone(), [vals]
+
+    def merged_column(self, device="cpu"):
+        return torch.tensor([10, 11, 12, 13, 14, 15], dtype=torch.int64, device=device)
+
+    def row_offset(self):
+        return None  # found by a search of its sorted column
+
+    def num_columns(self):
+        return 1
 
     def __lt__(self, other):
         return False
@@ -228,7 +238,7 @@ class _Ctx:
 class _LookupNode:
     def gen_lookup_witness(self, node_id, ctx, step):
         vals = torch.tensor([10, 10, 10, 12, 15, 15, 12, 10])
-        return [], {_PaddedTable(): LC.count_elements(vals)}
+        return [], {_PaddedTable(): vals}
 
 
 def test_fractional_multiplicities_of_a_padded_table(monkeypatch):
@@ -239,4 +249,4 @@ def test_fractional_multiplicities_of_a_padded_table(monkeypatch):
     # rows 10, 11 repeat: count / 2 in the field; 12 once; 15 once
     want = [4 * pow(2, p - 2, p) % p, 0, 2, 0, 0, 2, 4 * pow(2, p - 2, p) % p, 0]
     assert gf.to_u64(wit.multiplicities).tolist() == want
-    assert gf.to_u64(wit.column_evals[0]).tolist() == [10, 11, 12, 13, 14, 15, 10, 11]
+    assert gf.to_u64(LC.table_columns_padded(_PaddedTable(), "cpu")[0]).tolist() == [10, 11, 12, 13, 14, 15, 10, 11]

@@ -29,6 +29,8 @@ def _recompute(part):
         return M.graph_reference(part.split("_", 1)[1], R.RESIDUAL_KW)
     if part.startswith("transformer_"):
         return M.graph_reference(part.split("_", 1)[1], R.TRANSFORMER_KW)
+    if part.startswith("attention_"):
+        return M.graph_reference(part.split("_", 1)[1], R.ATTENTION_KW)
     return M.PARTS[part]()
 
 
@@ -38,16 +40,17 @@ def _frozen(part):
         return ref["basefold"][part.split("_")[1]]
     if part.startswith("logup_"):
         return ref["logup"][part.split("_", 1)[1]]
-    for group in ("cnn", "residual", "transformer"):
+    for group in ("cnn", "residual", "transformer", "attention"):
         if part.startswith(group + "_"):
             return ref[group][part.split("_", 1)[1]]
     return ref[part]
 
 
-PARTS = ["sumcheck", "basefold_rs", "basefold_trivial", "dense"]
+PARTS = ["sumcheck", "basefold_rs", "basefold_trivial", "basefold_batch", "dense"]
 PARTS += [f"logup_{name}" for name in R.LOGUP_CASES] + ["mlp"]
 PARTS += [f"cnn_{name}" for name in R.CNN_CASES]
 PARTS += [f"residual_{name}" for name in R.RESIDUAL_CASES] + [f"transformer_{name}" for name in R.TRANSFORMER_CASES]
+PARTS += [f"attention_{name}" for name in R.ATTENTION_FROZEN]
 
 
 @pytest.mark.parametrize("part", PARTS)

@@ -49,6 +49,19 @@ SUMCHECK_EDGE_CASES = {
     "tail_of_one_round": (5, 4, [[0, 1, 2], [3]], 3, 1),
 }
 
+# Rows of their own lengths (a row of 2^l entries stands for its tiling over
+# the high variables; the batch opening's eq and merged rows of a claim on
+# a smaller polynomial): name -> (num_vars, rows, products' factor lists,
+# degree, tail start or None, each row's log-length). Rows of 2^11, 2 and 1
+# beside full ones, folded above a tail from 10; three sizes and a constant
+# row at degree 3, all in the tail; a row of 4 and one of 2^12 beside full
+# ones above the tail.
+SUMCHECK_RAGGED_CASES = {
+    "ragged_batch_open": (16, 8, [[0, 1], [2, 3], [4, 5], [6, 7]], 2, 10, [16, 16, 11, 11, 1, 1, 0, 0]),
+    "ragged_three_sizes": (12, 6, [[0, 1, 2], [3, 4], [5, 1]], 3, None, [12, 7, 12, 3, 9, 0]),
+    "ragged_above_tail": (13, 4, [[0, 1], [2, 3]], 2, 10, [13, 12, 2, 13]),
+}
+
 # basefold: one 2^6 poly (RS path) and one 2^2 poly (trivial commitment)
 BASEFOLD_KW = dict(num_queries=11, basecode_msg_size_log=2)
 BASEFOLD_MAX_LOG = 6
@@ -91,6 +104,20 @@ def sumcheck_inputs():
     n = 1 << SUMCHECK_NUM_VARS
     a, b, c0, c1 = (rng.integers(0, P, size=n, dtype=np.uint64) for _ in range(4))
     return a, b, (c0, c1)
+
+
+# the batch opening with polynomials of three sizes (2^6, 2^4, 2^3) at
+# three points, which the sumcheck reads at their own lengths
+BASEFOLD_BATCH_LOGS = (6, 4, 3)
+
+
+def basefold_batch_inputs():
+    """(polys, points): one random base poly and one point a size."""
+    rng = np.random.default_rng(105)
+    polys = [rng.integers(0, P, size=1 << n, dtype=np.uint64) for n in BASEFOLD_BATCH_LOGS]
+    points = [[tuple(int(v) for v in rng.integers(0, P, size=2, dtype=np.uint64)) for _ in range(n)]
+              for n in BASEFOLD_BATCH_LOGS]
+    return polys, points
 
 
 def basefold_inputs():
@@ -298,6 +325,39 @@ GPT2_FIT_CASE = "gpt2_ffn_fit"
 GPT2_FIT_BITS = (26, 16, 16, 9, 23, 16, 16, 8)
 GPT2_CASE = "gpt2_ffn"
 GRAPH_PROOF_PARTS = ("steps", "merges", "table_proofs", "shared_logup", "commit")
+# the attention half (queue 1 item 4) at the JAX tests' shapes: a QKV of an
+# (4, 8) input with its three Requants (tests/test_qkv.py), a ConcatMatMul
+# of two (2, 4, 8)/(2, 8, 4) inputs, its transpose_b form behind two
+# Permutes of (4, 2, 8) inputs (tests/test_concat_matmul.py), a Permute
+# then a Reshape into a MatMul, the causal Softmax of tests/test_softmax.py
+# (an (8, 8) input, max size 64, one zero chunk), Logits of a (4, 16) int8
+# input; and "attn_block": the GPT-2 attention half's structure at seq 4,
+# width 16, two heads of 8 (positional -> layernorm -> requant -> qkv ->
+# three requants -> permutes -> Q K^T -> softmax -> P V -> permute ->
+# reshape -> requant -> matmul -> requant -> the add of the positional
+# output, its fan-out merged; then requant -> matmul -> requant -> logits),
+# each Requant's multiplier set to about 100 / its largest input and its
+# bits fitted to it (clamping tables of 2^8 and 2^9 rows); and
+# "attn_fanout", the same attention half cut so that the JAX package's CPU
+# prove finishes: no LayerNorm and no Logits tail, four Requants with
+# multipliers above 2^-8 (a 32-bit shift: four range chunks each) and 19
+# bits, so that they share one 2^12-row clamping table (positional -> qkv
+# -> three requants -> permutes -> Q K^T -> softmax -> P V -> permute ->
+# reshape -> requant -> matmul -> the add of the positional output, its
+# fan-out merged), 20 instances in its largest consolidated logup.
+ATTENTION_KW = CNN_KW
+ATTENTION_CASES = ("qkv", "concat_matmul", "concat_matmul_t", "permute", "softmax", "logits", "attn_block",
+                   "attn_fanout")
+# the cases whose JAX proofs are frozen: attn_block's JAX CPU prove (its
+# consolidated logup of 47 instances) ran more than three and a half
+# hours without finishing, so it is held live (its layers against the JAX
+# package, its proof by the port's verifier) and through attn_fanout
+ATTENTION_FROZEN = tuple(c for c in ATTENTION_CASES if c != "attn_block")
+# attn_block's Requants (multiplier, bits) in node order, and its Softmax
+ATTN_REQUANTS = {2: (5.68e-06, 26), 4: (0.004, 16), 5: (0.00333, 16), 6: (0.00466, 16), 15: (0.00026, 20),
+                 17: (0.00346, 16), 19: (0.524, 9), 21: (0.00315, 16)}
+ATTN_SOFTMAX = dict(s_in=0.0005762028158642352, max_size=64, temperature=0.35355339059327373, seq=4,
+                    domain_max=27768)
 GPT2_TINY = dict(vocab=32, emb=16, heads=2, blocks=2, context=8)
 GPT2_TINY_SEQ = 4
 GPT2_TINY_TOKENS = (3, 7, 1, 5)
@@ -311,6 +371,13 @@ GPT2_TINY_TOKENS = (3, 7, 1, 5)
 GPT2_124M = dict(vocab=50257, emb=768, heads=12, blocks=12, context=1024)
 GPT2_FFN_CHIP = dict(GPT2_124M, emb=128, heads=2)
 GPT2_124M_SEQ = 64
+# The chip phase gpt2: GPT-2-124M's whole graph (Embeddings to Logits) at its
+# vocabulary, width, heads, context, seq and prompt, cut to two of its 12
+# blocks: from block 2 on a LayerNorm's Requant needs a 2^29-row clamping
+# table, and from block 6 most need 2^30, which the card cannot commit
+# and prove (scripts/gpt2_requant_widths.py); two blocks' largest table is
+# 2^28 rows, one block's too.
+GPT2_CHIP = dict(GPT2_124M, blocks=2)
 
 
 def _ints(rng, shape, lo=Q_MIN, hi=Q_MAX + 1):
@@ -334,6 +401,8 @@ def graph_case(name: str) -> dict:
     if name in ("gpt2_ffn", "gpt2_ffn_fit"):
         case = {"gpt2": dict(GPT2_TINY), "seq": GPT2_TINY_SEQ, "tokens": np.array(GPT2_TINY_TOKENS, dtype=np.int64)}
         return {**case, "requant_bits": GPT2_FIT_BITS} if name == "gpt2_ffn_fit" else case
+    if name in ATTENTION_CASES:
+        return attention_case(name)
     seeds = {n: 130 + i for i, n in enumerate(RESIDUAL_CASES + TRANSFORMER_CASES)}
     rng = np.random.default_rng(seeds[name])
     if name == "fanout":
@@ -397,6 +466,79 @@ def graph_case(name: str) -> dict:
     raise ValueError(name)
 
 
+def attention_case(name: str) -> dict:
+    """One case of the attention part, in `graph_case`'s layer-graph form."""
+    rng = np.random.default_rng(150 + ATTENTION_CASES.index(name))
+    permute = lambda shape: ("permute", dict(perm=(1, 0, 2), in_shape=shape))  # noqa: E731
+    if name == "qkv":
+        ws, bs = [_ints(rng, (8, 8)) for _ in range(3)], [_ints(rng, 8) for _ in range(3)]
+        rq = dict(multiplier=1.0 / 128 / 8, bits=2 * 7 + 3 + 1)  # QKV.output_bitsize at k = 8
+        nodes = [("qkv", dict(ws=ws, bs=bs), [(None, 0)])] + [("requant", rq, [(0, w)]) for w in range(3)]
+        return {"nodes": nodes, "inputs": [_ints(rng, (4, 8))]}
+    if name == "concat_matmul":
+        return {"nodes": [("concat_matmul", dict(transpose_b=False), [(None, 0), (None, 1)])],
+                "inputs": [_ints(rng, (2, 4, 8)), _ints(rng, (2, 8, 4))]}
+    if name == "concat_matmul_t":
+        nodes = [(*permute((4, 2, 8)), [(None, 0)]), (*permute((4, 2, 8)), [(None, 1)]),
+                 ("concat_matmul", dict(transpose_b=True), [(0, 0), (1, 0)])]
+        return {"nodes": nodes, "inputs": [_ints(rng, (4, 2, 8)), _ints(rng, (4, 2, 8))]}
+    if name == "permute":
+        nodes = [(*permute((4, 2, 8)), [(None, 0)]), ("reshape", dict(shape=(8, 8)), [(0, 0)]),
+                 ("matmul", dict(right=_ints(rng, (8, 8)), bias=_ints(rng, 8)), [(1, 0)])]
+        return {"nodes": nodes, "inputs": [_ints(rng, (4, 2, 8))]}
+    if name == "softmax":
+        sm = dict(s_in=1.0 / 32.0, max_size=64, temperature=1.0, seq=8, domain_max=Q_MAX)
+        return {"nodes": [("softmax", sm, [(None, 0)])], "inputs": [_ints(rng, (8, 8))]}
+    if name == "logits":
+        return {"nodes": [("logits", {}, [(None, 0)])], "inputs": [_ints(rng, (4, 16))]}
+    if name == "attn_fanout":
+        x, pos = _ints(rng, (4, 16), -16, 16), _ints(rng, (4, 16), -16, 16)
+        ws, bs = [_ints(rng, (16, 16)) for _ in range(3)], [_ints(rng, 16, -100, 100) for _ in range(3)]
+        w1, b1 = _ints(rng, (16, 16)), _ints(rng, 16, -1000, 1000)
+        rq = lambda m: dict(multiplier=m, bits=19)  # noqa: E731
+        sm = dict(s_in=16 / 2538, max_size=64, temperature=8 ** -0.5, seq=4, domain_max=2538)  # |Q K^T| <= 2538
+        nodes = [("positional", dict(table=pos), [(None, 0)]),
+                 ("qkv", dict(ws=ws, bs=bs), [(0, 0)]),
+                 ("requant", rq(0.005), [(1, 0)]), ("requant", rq(0.005), [(1, 1)]),
+                 ("requant", rq(0.005), [(1, 2)]),
+                 (*permute((4, 2, 8)), [(2, 0)]), (*permute((4, 2, 8)), [(3, 0)]), (*permute((4, 2, 8)), [(4, 0)]),
+                 ("concat_matmul", dict(transpose_b=True), [(5, 0), (6, 0)]),
+                 ("softmax", sm, [(8, 0)]),
+                 ("concat_matmul", dict(transpose_b=False), [(9, 0), (7, 0)]),
+                 (*permute((2, 4, 8)), [(10, 0)]),
+                 ("reshape", dict(shape=(4, 16)), [(11, 0)]),
+                 ("requant", rq(0.004), [(12, 0)]),
+                 ("matmul", dict(right=w1, bias=b1), [(13, 0)]),
+                 ("add", {}, [(0, 0), (14, 0)])]
+        return {"nodes": nodes, "inputs": [x]}
+    x, pos = _ints(rng, (4, 16), -64, 64), _ints(rng, (4, 16), -64, 64)
+    ln = dict(gamma_f=rng.normal(1.0, 0.2, size=16), beta_f=rng.normal(0.0, 0.1, size=16), eps=1e-5, s_in=1.0 / 64)
+    ws, bs = [_ints(rng, (16, 16)) for _ in range(3)], [_ints(rng, 16, -1000, 1000) for _ in range(3)]
+    w1, b1, w2 = _ints(rng, (16, 16)), _ints(rng, 16, -1000, 1000), _ints(rng, (16, 16))
+    nodes = [("positional", dict(table=pos), [(None, 0)]),
+             ("layernorm", ln, [(0, 0)]),
+             ("requant", None, [(1, 0)]),
+             ("qkv", dict(ws=ws, bs=bs), [(2, 0)]),
+             ("requant", None, [(3, 0)]), ("requant", None, [(3, 1)]), ("requant", None, [(3, 2)]),
+             (*permute((4, 2, 8)), [(4, 0)]), (*permute((4, 2, 8)), [(5, 0)]), (*permute((4, 2, 8)), [(6, 0)]),
+             ("concat_matmul", dict(transpose_b=True), [(7, 0), (8, 0)]),
+             ("softmax", dict(ATTN_SOFTMAX), [(10, 0)]),
+             ("concat_matmul", dict(transpose_b=False), [(11, 0), (9, 0)]),
+             (*permute((2, 4, 8)), [(12, 0)]),
+             ("reshape", dict(shape=(4, 16)), [(13, 0)]),
+             ("requant", None, [(14, 0)]),
+             ("matmul", dict(right=w1, bias=b1), [(15, 0)]),
+             ("requant", None, [(16, 0)]),
+             ("add", {}, [(0, 0), (17, 0)]),
+             ("requant", None, [(18, 0)]),
+             ("matmul", dict(right=w2, bias=np.zeros(16, dtype=np.int64)), [(19, 0)]),
+             ("requant", None, [(20, 0)]),
+             ("logits", {}, [(21, 0)])]
+    for i, (mult, bits) in ATTN_REQUANTS.items():
+        nodes[i] = ("requant", dict(multiplier=mult, bits=bits), nodes[i][2])
+    return {"nodes": nodes, "inputs": [x]}
+
+
 def gpt2_ffn_graph(llm, model_mod, positional_cls, cfg: dict, seq: int, tokens, table=lambda a: a,
                    requant_bits=None, **builder_kw):
     """The chip path's graph, built with one package's modules (`llm`,
@@ -458,12 +600,16 @@ def port_graph(case: dict, device):
 
 def graph_records(model) -> list:
     """A quantized DAG of either package as [(kind, fields, edges)] numpy
-    records, edges [(producer node or None, wire)]: positional table;
-    layernorm gamma, beta (padded), dim_size, multiplier, eps,
-    range_check_bits; requant the RequantSpec fields; matmul right_const,
-    bias (None where absent); gelu s_in, s_out; add none."""
+    records, edges [(producer node or None, wire)]: embeddings and
+    positional table; layernorm gamma, beta (padded), dim_size, multiplier,
+    eps, range_check_bits; requant the RequantSpec fields; matmul
+    right_const, bias (None where absent); gelu s_in, s_out; qkv ws, bs;
+    permute perm, in_shape; concat_matmul transpose_b; softmax the fields
+    its output is made from (s_in, inv_temp, scalar, seq, bkm, sts, ztv,
+    n_zero_chunks, neg_inf); reshape shape; add and logits none."""
     kinds = {"Positional": "positional", "LayerNorm": "layernorm", "Requant": "requant", "MatMul": "matmul",
-             "Gelu": "gelu", "Add": "add"}
+             "Gelu": "gelu", "Add": "add", "Embeddings": "embeddings", "QKV": "qkv", "Permute": "permute",
+             "ConcatMatMul": "concat_matmul", "Softmax": "softmax", "Reshape": "reshape", "Logits": "logits"}
 
     def arr(t):
         return None if t is None else np.asarray(t.cpu() if hasattr(t, "cpu") else t, dtype=np.int64)
@@ -472,8 +618,19 @@ def graph_records(model) -> list:
     for nid in model.forward_order():
         op = model.nodes[nid].op
         kind = kinds[type(op).__name__]
-        if kind == "positional":
+        if kind in ("positional", "embeddings"):
             f = dict(table=arr(op.table))
+        elif kind == "qkv":
+            f = dict(ws=[arr(w) for w in op.ws], bs=[arr(b) for b in op.bs])
+        elif kind == "permute":
+            f = dict(perm=tuple(op.perm), in_shape=tuple(op.in_shape))
+        elif kind == "concat_matmul":
+            f = dict(transpose_b=op.transpose_b)
+        elif kind == "softmax":
+            f = {k: getattr(op, k) for k in ("s_in", "inv_temp", "scalar", "seq", "bkm", "sts", "ztv",
+                                             "n_zero_chunks", "neg_inf")}
+        elif kind == "reshape":
+            f = dict(shape=tuple(op.shape))
         elif kind == "layernorm":
             f = dict(gamma=arr(op.gamma), beta=arr(op.beta), dim_size=op.dim_size, multiplier=op.multiplier,
                      eps=op.eps, range_check_bits=op.range_check_bits)
@@ -494,22 +651,84 @@ def _f32(v: float) -> float:
     return float(np.float32(v))
 
 
+def _imatmul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """An integer matrix product through float64 BLAS: exact while every
+    partial sum stays below 2^53, which the bound checks."""
+    bound = float(np.abs(a).max(initial=0)) * float(np.abs(b).max(initial=0)) * a.shape[-1]
+    assert bound < 2.0**52, "the float64 product would round"
+    return np.rint(a.astype(np.float64) @ b.astype(np.float64)).astype(np.int64)
+
+
+def _softmax_np(x: np.ndarray, f: dict) -> np.ndarray:
+    """The quantized softmax of `graph_records`' fields, in numpy: each
+    row's negated log-sum-exp at 2^24 in float32, the causal mask, the
+    decomposition of |value| into 8 + 8 bits, the exp table's index and the
+    zero chunks, the exp table's row (float32, 0 from bkm on) times the
+    chunks' zero flags."""
+    x2 = x.reshape(-1, x.shape[-1]).astype(np.int64)
+    r, c = x2.shape
+    seq = f["seq"]
+    tril = np.ones((r, c), dtype=np.int64) if seq is None else (
+        np.arange(c)[None, :] <= (np.arange(r) % seq)[:, None]).astype(np.int64)
+    shift = np.zeros(r, dtype=np.int64)
+    for i in range(r):
+        active = x2[i][tril[i].astype(bool)]
+        mx = np.int64(active.max())
+        sm = np.sum(np.exp((active - mx).astype(np.float32) * np.float32(f["s_in"] / f["inv_temp"])),
+                    dtype=np.float32)
+        shift[i] = -np.int64(round(float((1 << 24) * f["inv_temp"] * np.log(sm, dtype=np.float32)))) - mx * np.int64(
+            f["scalar"])
+    masked = (x2 * f["scalar"] + shift[:, None]) * tril + f["neg_inf"] * (1 - tril)
+    a = -masked
+    j = np.arange(1 << f["sts"], dtype=np.int64)
+    prod = np.int64(1 << 16) * j
+    e = np.exp(-(prod.astype(np.float32)) / (np.float32(1 << 24) * np.float32(f["inv_temp"])))
+    table = np.where(prod >= f["bkm"], 0, np.round(e * np.float32(1 << 12)).astype(np.int64))
+    out = table[(a >> 16) & ((1 << f["sts"]) - 1)]
+    a = a >> (16 + f["sts"])
+    for _ in range(f["n_zero_chunks"]):
+        out = out * ((a & ((1 << f["ztv"]) - 1)) == 0)
+        a = a >> f["ztv"]
+    assert (a == 0).all()
+    return out.reshape(x.shape)
+
+
 def numpy_eval_graph(records, inputs) -> np.ndarray:
     """The last node's output of a `graph_records` DAG, evaluated with numpy
-    int64 alone: x + P; LayerNorm's integer rows through the InverseSQRT
-    table (rows from -2^14, out = round(2^10 / sqrt(v 2^rc / 2^24 + eps)));
-    the Requant arithmetic; an integer matmul with bias, padded to powers
-    of two; GELU through its table (inputs MIN - 1 ..= MAX, tanh form, the
-    scales as float32); an integer add."""
+    int64 alone: E[tokens]; x + P; LayerNorm's integer rows through the
+    InverseSQRT table (rows from -2^14, out = round(2^10 / sqrt(v 2^rc /
+    2^24 + eps))); the Requant arithmetic; an integer matmul with bias,
+    padded to powers of two; GELU through its table (inputs MIN - 1 ..=
+    MAX, tanh form, the scales as float32); an integer add; the three QKV
+    projections; a transpose; the per-head products; the quantized softmax
+    (`_softmax_np`); a reshape; the argmax of each row."""
 
     def pow2(n):
         return 1 << max(0, (int(n) - 1).bit_length())
 
     vals = {}
     for nid, (kind, f, edges) in enumerate(records):
-        xs = [np.asarray(inputs[w]) if n is None else vals[n] for n, w in edges]
+        xs = [np.asarray(inputs[w]) if n is None else vals[n][w] for n, w in edges]
         x = xs[0]
-        if kind == "positional":
+        if kind == "embeddings":
+            v = f["table"][x.reshape(-1)]
+        elif kind == "qkv":
+            xp = np.zeros((pow2(x.shape[0]), f["ws"][0].shape[0]), dtype=np.int64)
+            xp[: x.shape[0], : x.shape[1]] = x
+            vals[nid] = [_imatmul(xp, w) + b[None, :] for w, b in zip(f["ws"], f["bs"])]
+            continue
+        elif kind == "permute":
+            v = np.ascontiguousarray(np.transpose(x.reshape(f["in_shape"]), f["perm"]))
+        elif kind == "concat_matmul":
+            b = np.transpose(xs[1], (0, 2, 1)) if f["transpose_b"] else xs[1]
+            v = np.stack([_imatmul(x[h], b[h]) for h in range(x.shape[0])])
+        elif kind == "softmax":
+            v = _softmax_np(x, f)
+        elif kind == "reshape":
+            v = x.reshape(f["shape"])
+        elif kind == "logits":
+            v = np.argmax(x, axis=-1)
+        elif kind == "positional":
             t = f["table"]
             v = x + t[: x.shape[0]]
         elif kind == "layernorm":
@@ -532,7 +751,7 @@ def numpy_eval_graph(records, inputs) -> np.ndarray:
             w = f["right_const"]
             a = np.zeros((x.shape[0], w.shape[0]), dtype=np.int64)
             a[:, : x.shape[1]] = x
-            c = a @ w
+            c = _imatmul(a, w)
             if f["bias"] is not None:
                 c = c + f["bias"][None, : c.shape[1]]
             v = np.zeros((pow2(c.shape[0]), pow2(c.shape[1])), dtype=np.int64)
@@ -545,8 +764,8 @@ def numpy_eval_graph(records, inputs) -> np.ndarray:
             v = table[x - (Q_MIN - 1)]
         else:
             v = xs[0] + xs[1]
-        vals[nid] = v
-    return vals[len(records) - 1]
+        vals[nid] = [v]
+    return vals[len(records) - 1][0]
 
 
 def _ext(rng):
