@@ -12,8 +12,9 @@ Phases, each printing one JSON line:
                warps an SM; the registers, stack and local bytes of the
                three kernels that run the duplex (sponge, finish, tail:
                the state must stay in registers, 0 stack and 0 local
-               bytes); the tail's cooperative grid (blocks, threads,
-               blocks an SM) at each degree.
+               bytes) and of the round kernel; the tail's cooperative grid
+               (blocks, threads, blocks an SM) and the round kernel's grid
+               at each degree.
   2. kernels - the Merkle kernel against its plain torch version
                (bit-identical) on random levels at sizes on both sides of
                the block and warp boundaries and on levels of the edge
@@ -42,7 +43,9 @@ Phases, each printing one JSON line:
                ConcatMatMul's degree-3 product at 2^10, Softmax's mask
                sumcheck at 2^16; then rows of their own lengths
                (SUMCHECK_RAGGED_CASES: rows of 2^11, 2 and 1 beside full
-               ones above a tail, three sizes and a constant row).
+               ones above a tail, three sizes and a constant row, the
+               batch opening's shape at eight sizes, a row shared by
+               products of two spans beside a row that no product lists).
   3. slice   - the Dense-only chain [4, 1024, 1024, 3] at the reference's
                parameters (200 queries, rate 1/2, basecode 2^7):
                Model.run -> Context.generate -> Prover.prove -> verify on
@@ -111,7 +114,10 @@ Phases, each printing one JSON line:
                profiler's records, after the paths: the profiler's
                instrumentation slows the rest of a process), their plain
                versions' times and their bounds: bytes for the round
-               kernel, the dependent-product latency (measured by a chain
+               kernel, which is also timed at GPT-2-124M's batch opening
+               (its first folding round at the rows phase gpt2 recorded,
+               random values, and the finish on its partials), the
+               dependent-product latency (measured by a chain
                of a permutation's products in their order, beside a chain
                of Goldilocks multiplies) for the sponge and finish kernels (the
                finish timed at degree 2 and, on as many partials, at the
@@ -275,16 +281,19 @@ def phase_build():
     # the duplex's state must stay in registers in every kernel that runs it
     sponge_res = {k: kernel_resources(so, k) for k in SPONGE_KERNELS}
     tail = {d: fused.tail_config(d) for d in range(1, fused.MAX_DEGREE + 1)}
+    # the round kernel's grid at the batch opening of Dense-4M's shape (63 products, 126 rows)
+    round_grid = {d: fused.round_config(d, 63, 126) for d in range(1, fused.MAX_DEGREE + 1)}
+    round_res = kernel_resources(so, "round_kernel")
     emit({
         "phase": "build", "ok": True, "nvcc_s": build_s, "gcc_s": host_build_s,
         "library": os.path.relpath(so, ROOT),
         "card": card, "kernel": KERNEL, **stats, "sponge_kernels": sponge_res,
         "sponge_state_in_registers": all(r["stack_bytes"] == 0 and r["local_bytes"] == 0
                                          for r in sponge_res.values()),
-        "tail_grid_by_degree": tail,
+        "tail_grid_by_degree": tail, "round_kernel": round_res, "round_grid_by_degree": round_grid,
         "torch": torch.__version__, "cuda": torch.version.cuda,
     })
-    return card, {**stats, "sponge_kernels": sponge_res, "tail_grid": tail}
+    return card, {**stats, "sponge_kernels": sponge_res, "tail_grid": tail, "round_kernel": round_res}
 
 
 def check_levels(threads: int, seed: int = 7) -> dict:
@@ -666,10 +675,12 @@ def check_sumcheck(cases=None) -> dict:
 def time_sumcheck(chain_ns: float) -> dict:
     """Each sumcheck kernel's device time at the batch opening's shape (the
     round kernel's second round, which folds), its plain version's, and its
-    bound; the finish also at degree 5 on as many partials. The tail is
-    timed at TIMED_TAIL_ROUNDS rounds (the shape the kernel table has kept
-    since the tail's first port) and, when the default tail start differs,
-    at fused.TAIL_LOG rounds too."""
+    bound; the finish also at degree 5 on as many partials and at degree 2
+    on 1024. The tail is timed at TIMED_TAIL_ROUNDS rounds (the shape the
+    kernel table has kept since the tail's first port) and, when the
+    default tail start differs, at fused.TAIL_LOG rounds too. The round
+    kernel and the finish also at GPT-2-124M's batch opening
+    (`time_round_ragged`)."""
     from deepprove_tpu_torch.fields import gf
     from deepprove_tpu_torch.sumcheck import VirtualPolynomial, fused, prover
     from deepprove_tpu_torch.transcript import BasicTranscript
@@ -684,11 +695,12 @@ def time_sumcheck(chain_ns: float) -> dict:
     fidx, coeffs = fused.factor_index(vp, degree, "cuda"), fused.coefficients(vp, "cuda")
     chals = torch.randint(0, 1 << 62, (2, n), dtype=torch.int64, device="cuda")  # canonical
     msgs = torch.empty((2, n, degree + 1), dtype=torch.int64, device="cuda")
-    blocks0 = length // 2 // fused._lib().threads + 1
-    partials = torch.empty(blocks0 * 2 * (degree + 1), dtype=torch.int64, device="cuda")
+    sched = fused.schedule(st.row_vars, products, degree, n, "cuda")
+    grid = fused.round_config(degree, sched.items, m)
+    partials = torch.empty(grid["blocks"] * 2 * (degree + 1), dtype=torch.int64, device="cuda")
     round_ms = device_ms(lambda: fused.round_cuda((s0, s1), half, st.meta, m, 0, length, chals, 1, n,
-                                                  fidx, coeffs, partials, degree), 10, "round_kernel")
-    blocks = fused.round_cuda((s0, s1), half, st.meta, m, 0, length, chals, 1, n, fidx, coeffs,
+                                                  sched, coeffs, partials, degree), 10, "round_kernel")
+    blocks = fused.round_cuda((s0, s1), half, st.meta, m, 0, length, chals, 1, n, sched, coeffs,
                               partials, degree)
     s0, s1 = s0.reshape(m, length), s1.reshape(m, length)  # every row full length, end to end
     finish_ms = device_ms(lambda: fused.finish_cuda(partials, blocks, 1, n, msgs, chals, dt.state, degree), 50,
@@ -710,20 +722,20 @@ def time_sumcheck(chain_ns: float) -> dict:
     perms = sponge_permutations(2 * (degree + 1) + len(prover.ROUND_CHUNKS), 2)
     finish_bound = perms * 112 * chain_ns * 1e-6
 
-    def time_finish_degree(d: int) -> dict:
-        """The finish at degree d on as many random partials as the timed
-        round left (the maxpool zerocheck's degree, 5: 14 absorbs)."""
+    def time_finish_degree(d: int, rows: int) -> dict:
+        """The finish at degree d on `rows` random partials (the maxpool
+        zerocheck's degree, 5: 14 absorbs)."""
         from deepprove_tpu_torch.fields import host
 
-        words = np.random.default_rng(8).integers(0, host.P, size=blocks * 2 * (d + 1), dtype=np.uint64)
+        words = np.random.default_rng(8).integers(0, host.P, size=rows * 2 * (d + 1), dtype=np.uint64)
         part = gf.from_u64(words, "cuda")
         out = torch.empty((2, n, d + 1), dtype=torch.int64, device="cuda")
-        ms = device_ms(lambda: fused.finish_cuda(part, blocks, 1, n, out, chals, dt.state, d), 50, "finish_kernel")
+        ms = device_ms(lambda: fused.finish_cuda(part, rows, 1, n, out, chals, dt.state, d), 50, "finish_kernel")
         m_d = gf.GF2(gf.from_u64(words[0:2 * (d + 1):2], "cuda"), gf.from_u64(words[1:2 * (d + 1):2], "cuda"))
         plain, _ = wall_ms(lambda: [dt_cpu.step(arr=m_d, labels=(prover.ROUND_CHUNKS,), k=1) for _ in range(50)])
         p_d = sponge_permutations(2 * (d + 1) + len(prover.ROUND_CHUNKS), 2)
         return {"kernel_ms": ms, "plain_ms": plain / 50, "bound_ms": p_d * 112 * chain_ns * 1e-6,
-                "bound_by": "operations", "blocks": blocks, "permutations": p_d}
+                "bound_by": "operations", "blocks": rows, "permutations": p_d}
 
     finals = torch.empty((2, m), dtype=torch.int64, device="cuda")
 
@@ -763,15 +775,77 @@ def time_sumcheck(chain_ns: float) -> dict:
     extra = {}
     if fused.TAIL_LOG != TIMED_TAIL_ROUNDS:
         extra["tail_at_default"] = time_tail(fused.TAIL_LOG)
+    ragged = time_round_ragged(gpt2_opening_shape())
     return {
         "timed_shape": {"num_vars": n, "rows": m, "products": len(products), "degree": degree},
         "round": {"kernel_ms": round_ms, "plain_ms": plain_round_ms,
-                  "bound_ms": round_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"},
+                  "bound_ms": round_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                  "blocks": blocks, "grid": grid, "ragged": ragged},
         "finish": {"kernel_ms": finish_ms, "plain_ms": plain_finish_ms, "bound_ms": finish_bound,
                    "bound_by": "operations", "blocks": blocks, "permutations": perms,
-                   "degree_5": time_finish_degree(5)},
+                   "degree_5": time_finish_degree(5, blocks),
+                   # the finish kernel's shape while the round kernel's grid followed the rows
+                   "at_1024_partials": time_finish_degree(2, 1024)},
         "tail": tail, **extra,
     }
+
+
+def gpt2_opening_shape() -> dict:
+    """GPT-2-124M's batch-opening sumcheck as phase gpt2 recorded it in this
+    process (fused.LARGEST), else as tests/torch_reference.py
+    GPT2_OPENING_CLAIMS records it (claims by their rows' log-length)."""
+    import torch_reference as R
+
+    if LARGEST_BY_PATH.get("gpt2", {}).get("rows"):
+        return {**LARGEST_BY_PATH["gpt2"], "source": "phase gpt2"}
+    rv = [lg for lg, claims in sorted(R.GPT2_OPENING_CLAIMS.items(), reverse=True) for _ in range(2 * claims)]
+    return {"num_vars": max(rv), "row_vars": rv, "factors": [[2 * c, 2 * c + 1] for c in range(len(rv) // 2)],
+            "degree": 2, "source": "torch_reference.GPT2_OPENING_CLAIMS"}
+
+
+def time_round_ragged(big: dict) -> dict:
+    """The round kernel at a path's largest stacked sumcheck (phase gpt2's:
+    the batch opening, its rows at their own lengths), in its first folding
+    round, on random device values as `check_largest` draws them; the finish
+    kernel on that round's partials. The bound: the rows' own entries read
+    once and their halves written once."""
+    from deepprove_tpu_torch.fields import gf
+    from deepprove_tpu_torch.sumcheck import fused
+    from deepprove_tpu_torch.transcript import BasicTranscript
+    from deepprove_tpu_torch.transcript.session import DeviceTranscript
+
+    n, row_vars, factors, degree = big["num_vars"], big["row_vars"], big["factors"], big["degree"]
+    st = fused.empty_stack(row_vars, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for plane in st.first:
+        plane.random_(0, 1 << 62, generator=g)  # canonical
+    half = st.second()
+    m, length = st.rows, st.length
+    sched = fused.schedule(row_vars, factors, degree, n, "cuda")
+    grid = fused.round_config(degree, sched.items, m)
+    partials = torch.empty(grid["blocks"] * 2 * (degree + 1), dtype=torch.int64, device="cuda")
+    c = torch.randint(0, 1 << 62, (2, len(factors)), generator=g, dtype=torch.int64, device="cuda")
+    coeffs = gf.GF2(c[0], c[1])
+    chals = torch.randint(0, 1 << 62, (2, n), generator=g, dtype=torch.int64, device="cuda")
+    msgs = torch.empty((2, n, degree + 1), dtype=torch.int64, device="cuda")
+    dt = DeviceTranscript.from_host(BasicTranscript(b"timing"), "cuda")
+
+    def one_round():
+        return fused.round_cuda(st.first, half, st.meta, m, 0, length, chals, 1, n, sched, coeffs, partials, degree)
+
+    ms = device_ms(one_round, 5, "round_kernel")
+    blocks = one_round()
+    finish_ms = device_ms(lambda: fused.finish_cuda(partials, blocks, 1, n, msgs, chals, dt.state, degree), 50,
+                          "finish_kernel")
+    entries = sum(1 << lg for lg in row_vars)
+    halves = sum(1 << max(lg - 1, 0) for lg in row_vars)
+    result = {"kernel_ms": ms, "bound_ms": (entries + halves) * 16 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+              "num_vars": n, "rows": m, "products": len(factors), "degree": degree, "entries": entries,
+              "units": sched.work[1], "blocks": blocks, "grid": grid, "finish_ms": finish_ms,
+              "source": big["source"]}
+    del st, half
+    torch.cuda.empty_cache()
+    return result
 
 
 def build_chain(dims, seed):
@@ -911,6 +985,9 @@ def drive(name, model, x_np, want, pcs_kw, warm_runs):
     return result
 
 
+LARGEST_BY_PATH: dict = {}  # path -> its largest stacked sumcheck's shape (fused.LARGEST), for kernel_times
+
+
 def check_largest(name) -> dict:
     """The sumcheck kernels against the per-round prover at the path's
     stacked sumcheck with the most entries since the last reset
@@ -918,8 +995,10 @@ def check_largest(name) -> dict:
     from deepprove_tpu_torch.sumcheck import fused
 
     big = dict(fused.LARGEST)
+    LARGEST_BY_PATH[name] = big
     largest = {"num_vars": big["num_vars"], "rows": big["rows"], "entries": big["entries"],
-               "row_vars": sorted(set(big["row_vars"])), "products": len(big["factors"]), "degree": big["degree"]}
+               "row_vars": sorted(set(big["row_vars"])), "products": len(big["factors"]), "degree": big["degree"],
+               "rows_by_log_length": {lg: big["row_vars"].count(lg) for lg in sorted(set(big["row_vars"]))}}
     if big["rows"]:
         check = check_sumcheck({name: (big["num_vars"], big["rows"], big["factors"], big["degree"], None,
                                        big["row_vars"])})
@@ -1239,10 +1318,15 @@ def main() -> int:
         ("sponge", "transcript.cu", "deepprove_tpu/transcript/device.py:60",
          {**sp, "bound_by": "operations"}, k["sponge"]["max_abs_err"],
          {**res["sponge_kernel"], **mul, "permutations": sp["permutations"]}),
-        ("sumcheck_round", "sumcheck.cu", "deepprove_tpu/sumcheck/fused.py:164", sc["round"], sc["max_abs_err"], {}),
+        ("sumcheck_round", "sumcheck.cu", "deepprove_tpu/sumcheck/fused.py:164", sc["round"], sc["max_abs_err"],
+         {**stats["round_kernel"], "partials": sc["round"]["blocks"], "grid_blocks": sc["round"]["grid"]["blocks"],
+          **({"ragged_ms": rg["kernel_ms"], "ragged_bound_ms": rg["bound_ms"], "ragged_partials": rg["blocks"],
+              "ragged_finish_ms": rg["finish_ms"], "ragged_rows": rg["rows"], "ragged_entries": rg["entries"]}
+             if (rg := sc["round"]["ragged"]) else {})}),
         ("sumcheck_finish", "sumcheck.cu", "deepprove_tpu/sumcheck/fused.py:164", sc["finish"], sc["max_abs_err"],
          {**res["finish_kernel"], **mul, "partials": sc["finish"]["blocks"],
           "permutations": sc["finish"]["permutations"], "degree_5_ms": sc["finish"]["degree_5"]["kernel_ms"],
+          "at_1024_partials_ms": sc["finish"]["at_1024_partials"]["kernel_ms"],
           "degree_5_bound_ms": sc["finish"]["degree_5"]["bound_ms"]}),
         ("sumcheck_tail", "sumcheck.cu", "deepprove_tpu/sumcheck/fused.py:64", tail, sc["max_abs_err"],
          {**res["tail_kernel"], **mul, "grid_blocks": tail["grid"]["blocks"],

@@ -10,21 +10,22 @@
 // takes entries 2j and 2j + 1, low variable first, so a tiled row stays
 // periodic through every round and reading it modulo its length gives what
 // the tiling gave, at the cost of its own length. Each row's word of
-// `meta` is (offset << 6) | l: the row's 2^l entries (room for at least 2)
-// start at `offset` in the first buffer and at offset / 2 in the second,
-// which holds each row folded once (ping-pong buffers: a row after k folds
-// lies in the first buffer when k is even). Each round: fold the previous
+// `meta` is (offset << 6) | l: the row's 2^l entries (room for at least 4,
+// offset a multiple of 4) start at `offset` in the first buffer and at
+// offset / 2 in the second, which holds each row folded once (ping-pong
+// buffers: a row after k folds lies in the first buffer when k is even). Each round: fold the previous
 // round's challenge into every row (the lowest variable), form the round
 // message (the sum at t = 0..D of the lowest variable), absorb it with the
 // label b"Internal round" and squeeze the next challenge. A factor index of
 // -1 is the constant 1 (it pads a product of lower degree).
 //
 // Three kernels, D (the degree, 1..5) a template parameter:
-//   round_kernel  one grid-wide pass: folds the rows by the challenge read
-//                 from device memory (none in round 0) into a second buffer
-//                 (ping-pong: a fold in place would race), reads its own
-//                 folded pairs back, and writes the block's partial message
-//                 to scratch;
+//   round_kernel  one pass over the card's grid: folds the rows by the
+//                 challenge read from device memory (none in round 0) into
+//                 a second buffer (ping-pong: a fold in place would race),
+//                 forms the round's terms from the folded pairs in its
+//                 registers, and writes each block's partial message to
+//                 scratch;
 //   finish_kernel one block: sums the partials, writes the message, runs the
 //                 sponge (transcript.cuh, one warp) and writes the challenge
 //                 where the next round_kernel reads it;
@@ -34,11 +35,40 @@
 // So a sumcheck of n variables is 2 launches a round above the tail and one
 // for the tail (sumcheck/fused.py picks the split).
 //
-// What bounds them: round_kernel reads the m rows (16 bytes an element) and
-// writes their halves once, and does 3 multiplies a fold and about D (D + 1)
-// extension multiplies a product a pair: at the main path's degrees (2 and
-// 3) the device memory, at degree 5 with few rows the multiplies. The
-// finish and tail kernels are latency: every round's challenge is a chain
+// What bounds them: round_kernel reads the rows' own entries (16 bytes an
+// element) once and writes their halves once, and does an extension
+// multiply a folded entry and about D (D + 1) a product a pair. Its bound
+// is the bytes, but on an H100 at degree 2 the arithmetic alone takes
+// longer: integer instructions run at 64 an SM a clock, a Goldilocks
+// product takes some 25 of them, and the compares and selects that keep
+// values canonical are 29 % of the kernel's (scripts/round_kernel_designs.py
+// times the kernel without its loads and without its products: the first
+// takes longer at the timed shape; PERF.md). Its work follows the rows'
+// own entries, not the longest row:
+//   - the host lays out the round's units (sumcheck/fused.py
+//     `round_plan`): one (item, pair) a unit, an item a product over
+//     the pairs of its longest factor (a shorter factor read at j modulo
+//     its own pairs, the item's coefficient scaled by the number of times
+//     the tiling repeats it) or a row that no product lists (its fold
+//     alone); so a row of 2^8 entries beside one of 2^28 costs its own
+//     pairs, not 2^27;
+//   - the units are spread evenly over a grid the size of the card (every
+//     SM, as many blocks as the occupancy calculator lets it hold), each
+//     thread taking every grid's-width-th unit: the partial messages are at
+//     most that many rows, whatever the shape, for the finish kernel; a
+//     thread decodes an item once for its units of it and applies the
+//     item's coefficient once, to their sum;
+//   - a unit reads each factor's four source entries as two 16-byte words a
+//     plane (rows start at a multiple of 4 entries), neighbouring threads on
+//     neighbouring words, every load of the unit issued before any
+//     arithmetic, and the thread's next unit prefetched into L2 before it,
+//     so that the arithmetic runs while the bytes stream; the one slot of
+//     the schedule that writes a row (its first listing) stores the folded
+//     pair as one 16-byte word a plane, and the same registers feed the
+//     terms: nothing is read back;
+//   - the items' words and bases and the rows' words are staged in shared
+//     memory when they fit (48 KB).
+// The finish and tail kernels are latency: every round's challenge is a chain
 // of dependent permutations that the next round's fold waits on. The tail
 // spreads each round's work over every SM so that a round's pass costs
 // little beside its sponge call:
@@ -129,6 +159,22 @@ __device__ __forceinline__ void store_l2(u64* p0, u64* p1, long long i, ext v) {
 // lo + r (hi - lo)
 __device__ __forceinline__ ext fold_pair(ext lo, ext hi, ext r) { return eadd(lo, emul(r, esub(hi, lo))); }
 
+// A round's challenge with the sum of its halves, which every Karatsuba
+// product by it takes: emul's arithmetic with that sum made once a round.
+struct Challenge {
+    ext r;
+    u64 rs;  // r.a0 + r.a1
+};
+
+__device__ __forceinline__ ext emul_by(const Challenge& c, ext b) {
+    u64 t0 = fmul(c.r.a0, b.a0);
+    u64 t1 = fmul(c.r.a1, b.a1);
+    u64 t2 = fmul(c.rs, fadd(b.a0, b.a1));
+    return {mul7_add(t1, t0), fsub(fsub(t2, t0), t1)};
+}
+
+__device__ __forceinline__ ext fold_by(ext lo, ext hi, const Challenge& c) { return eadd(lo, emul_by(c, esub(hi, lo))); }
+
 // A row's place: its offset in the buffer that holds it after `drop`
 // folds, and its length's log there (a row folded past its length is one
 // constant entry).
@@ -189,56 +235,194 @@ __device__ __forceinline__ void add_product(int p, const int* fidx, const u64* c
     for (int t = 0; t <= D; t++) sums[t] = eadd(sums[t], acc[t]);
 }
 
-// One pair j of one round of round_kernel, added into sums[0..D]; the
-// source rows have had `drop` folds. With `fold`, each row's entries
-// 4j..4j+3 (modulo its length) fold by r into its entries 2j, 2j + 1 in
-// the destination; the thread whose j is below the folded row's pairs
-// writes them and reads them back, any other recomputes the same values
-// from the source (a short row's pairs repeat over j). Without, the pair is
-// the source's entries 2j, 2j + 1.
+// The round kernel's work: one unit a (item, pair j) of the round, laid out
+// by the host (sumcheck/fused.py `round_plan`). An item is a product,
+// or a row that no product lists (its fold alone). Its word is D + 1 ints:
+// the product (-1 for a row alone), then D factor words, each the row's
+// index, with WRITES set in the one slot of the whole schedule that writes
+// that row's folded entries (its first listing), or -1 for the constant 1.
+// Item i takes units base[i] .. base[i + 1] - 1 of the round: its span, the
+// pairs of its longest factor after this round's fold. A shorter factor is
+// read at j modulo its own pairs, and the item's terms count
+// (pairs of the round) / span times: its coefficient is scaled by that
+// power of two, which is what the tiled rows would have summed to.
+constexpr int WRITES = 1 << 30;
+
+// 16-byte loads of the source rows (not written in the launch: the fold
+// writes the other buffer) and 16-byte stores of the folded pairs.
+__device__ __forceinline__ ulonglong2 ld16(const u64* p) { return __ldg(reinterpret_cast<const ulonglong2*>(p)); }
+
+__device__ __forceinline__ void st16(u64* p, u64 x, u64 y) {
+    *reinterpret_cast<ulonglong2*>(p) = make_ulonglong2(x, y);
+}
+
+// The schedule's tables, in shared memory when they fit, else where the
+// host put them.
+struct Plan {
+    const long long* base;
+    const int* word;
+    const u64* meta;
+};
+
+// The item a thread works on, decoded once an item: a thread's units are a
+// grid's width apart, so it takes each item of more units than the grid
+// has threads (every row of 2^17 entries and up at the card's grid) for
+// several units in turn. Each factor's place in the source rows and, when
+// its slot writes the row, in the destination; the mask that reads it at j
+// modulo its own pairs; how it is read:
+//   NONE  the constant 1;
+//   ONE   a row of one entry, its one entry as both of every pair;
+//   PAIR  one 16-byte word a plane: the pair 2jj, 2jj + 1 (no fold), or a
+//         row of two entries (a fold: its one folded entry);
+//   QUAD  two 16-byte words a plane: the entries 4jj .. 4jj + 3 that fold
+//         into the pair 2jj, 2jj + 1.
+enum { NONE, ONE, PAIR, QUAD };
+
 template <int D>
-__device__ __forceinline__ void round_pass(long long j, bool fold, const u64* s0, const u64* s1,
-                                           u64* d0, u64* d1, int m, const u64* meta, int drop, ext r,
-                                           const int* fidx, int np, const u64* c0, const u64* c1,
-                                           ext* sums) {
-    if (!fold) {
-        auto pair = [&](int row, ext& lo, ext& hi) { read_pair<false>(s0, s1, row_at(meta[row], drop), j, lo, hi); };
-        for (int p = 0; p < np; p++) add_product<D>(p, fidx, c0, c1, pair, sums);
-        return;
-    }
-    // the folded pair (lo, hi) of row `row`, from the source
-    auto folded = [&](Row src, ext& lo, ext& hi) {
+struct Item {
+    int prod;  // -1: a row alone (its fold only)
+    int kind[D];
+    bool writes[D];
+    long long src[D], dst[D], mask[D];
+    ext c;  // the coefficient, scaled
+};
+
+template <int D>
+__device__ __forceinline__ Item<D> decode_item(const Plan& pl, const u64* c0, const u64* c1, int i, long long span,
+                                               long long count, bool fold, int drop) {
+    Item<D> it;
+    const int* wd = pl.word + i * (D + 1);
+    it.prod = wd[0];
+#pragma unroll
+    for (int f = 0; f < D; f++) {
+        const int w = wd[1 + f];
+        it.kind[f] = NONE;
+        it.writes[f] = false;
+        it.src[f] = it.dst[f] = it.mask[f] = 0;
+        if (w < 0) continue;
+        const u64 word = pl.meta[w & (WRITES - 1)];
+        const Row src = row_at(word, drop);
+        it.src[f] = src.off;
+        it.writes[f] = fold && (w & WRITES);
+        it.dst[f] = row_at(word, drop + 1).off;
         if (src.lg == 0) {
-            lo = hi = load(s0, s1, src.off);
-        } else if (src.lg == 1) {
-            lo = hi = fold_pair(load(s0, s1, src.off), load(s0, s1, src.off + 1), r);
+            it.kind[f] = ONE;
+        } else if (fold && src.lg >= 2) {
+            it.kind[f] = QUAD;
+            it.mask[f] = (1LL << (src.lg - 2)) - 1;
         } else {
-            const long long s = src.off + 4 * (j & ((1LL << (src.lg - 2)) - 1));
-            lo = fold_pair(load(s0, s1, s), load(s0, s1, s + 1), r);
-            hi = fold_pair(load(s0, s1, s + 2), load(s0, s1, s + 3), r);
-        }
-    };
-    // does this thread write the row's folded pair j (its pairs: 2^(lg - 2), at least 1)?
-    auto owner = [&](Row src) { return src.lg >= 2 ? j < (1LL << (src.lg - 2)) : j == 0; };
-    for (int i = 0; i < m; i++) {
-        const Row src = row_at(meta[i], drop);
-        if (!owner(src)) continue;
-        ext lo, hi;
-        folded(src, lo, hi);
-        const long long d = row_at(meta[i], drop + 1).off + 2 * j;
-        d0[d] = lo.a0;
-        d1[d] = lo.a1;
-        if (src.lg >= 2) {
-            d0[d + 1] = hi.a0;
-            d1[d + 1] = hi.a1;
+            it.kind[f] = PAIR;
+            it.mask[f] = fold ? 0 : (1LL << (src.lg - 1)) - 1;
         }
     }
-    auto pair = [&](int row, ext& lo, ext& hi) {
-        const Row src = row_at(meta[row], drop);
-        if (owner(src)) read_pair<false>(d0, d1, row_at(meta[row], drop + 1), j, lo, hi);
-        else folded(src, lo, hi);
-    };
-    for (int p = 0; p < np; p++) add_product<D>(p, fidx, c0, c1, pair, sums);
+    it.c = {0, 0};
+    if (it.prod >= 0) {
+        it.c = {c0[it.prod], c1[it.prod]};
+        const u64 k = (u64)count >> (__ffsll(span) - 1);  // both powers of two
+        if (k > 1) it.c = {fmul(it.c.a0, k), fmul(it.c.a1, k)};
+    }
+    return it;
+}
+
+// An item's terms over a thread's units of it, unreduced (gl::wadd; a
+// thread takes fewer than 2^32 units of an item): an add a word.
+struct wext {
+    gl::wide a0, a1;
+};
+
+__device__ __forceinline__ void prefetch_l2(const u64* p) { asm volatile("prefetch.global.L2 [%0];" ::"l"(p)); }
+
+// The item at unit j (below its span): each factor's pair, folded by r
+// (with `fold`) and written when its slot writes the row and j is below the
+// row's pairs; then, for a product, its terms at t = 0..D added into acc
+// (the coefficient is applied once an item, in round_kernel). Every load of
+// the unit is issued before any arithmetic, then a prefetch into L2 of the
+// thread's next unit jn of the same item (-1: none), so that its rows
+// stream from device memory while this unit's arithmetic runs: the
+// arithmetic alone takes longer than the unit's bytes (PERF.md).
+template <int D>
+__device__ __forceinline__ void unit_pass(const Item<D>& it, long long j, long long jn, bool fold,
+                                          const Challenge& r, const u64* s0, const u64* s1, u64* d0, u64* d1,
+                                          wext* acc) {
+    ulonglong2 a[D], b[D], c[D], d[D];  // planes 0 (a: entries 0, 1; b: 2, 3) and 1 (c, d)
+#pragma unroll
+    for (int f = 0; f < D; f++) {
+        const long long o = it.src[f] + (it.kind[f] == QUAD ? 4 : 2) * (j & it.mask[f]);
+        if (it.kind[f] == ONE) {
+            const u64 e0 = __ldg(reinterpret_cast<const unsigned long long*>(s0 + o));
+            const u64 e1 = __ldg(reinterpret_cast<const unsigned long long*>(s1 + o));
+            a[f] = b[f] = make_ulonglong2(e0, e0);
+            c[f] = d[f] = make_ulonglong2(e1, e1);
+        } else if (it.kind[f] != NONE) {
+            a[f] = ld16(s0 + o);
+            c[f] = ld16(s1 + o);
+            b[f] = it.kind[f] == QUAD ? ld16(s0 + o + 2) : a[f];
+            d[f] = it.kind[f] == QUAD ? ld16(s1 + o + 2) : c[f];
+        }
+    }
+    if (jn >= 0) {
+#pragma unroll
+        for (int f = 0; f < D; f++) {
+            if (it.kind[f] != QUAD && it.kind[f] != PAIR) continue;
+            const long long o = it.src[f] + (it.kind[f] == QUAD ? 4 : 2) * (jn & it.mask[f]);
+            prefetch_l2(s0 + o);
+            prefetch_l2(s1 + o);
+        }
+    }
+    ext u[D + 1];
+    bool any = false;
+#pragma unroll
+    for (int f = 0; f < D; f++) {
+        if (it.kind[f] == NONE) continue;
+        ext lo = {a[f].x, c[f].x}, hi = {a[f].y, c[f].y};
+        if (fold) {
+            const ext l2 = {b[f].x, d[f].x}, h2 = {b[f].y, d[f].y};
+            lo = fold_by(lo, hi, r);
+            hi = fold_by(l2, h2, r);
+            if (it.writes[f]) {
+                if (it.kind[f] == QUAD) {
+                    if (j <= it.mask[f]) {
+                        st16(d0 + it.dst[f] + 2 * j, lo.a0, hi.a0);
+                        st16(d1 + it.dst[f] + 2 * j, lo.a1, hi.a1);
+                    }
+                } else if (j == 0) {
+                    d0[it.dst[f]] = lo.a0;
+                    d1[it.dst[f]] = lo.a1;
+                }
+            }
+        }
+        if (it.prod < 0) continue;  // a row alone: its fold only
+        const ext diff = esub(hi, lo);
+        ext v = lo;
+#pragma unroll
+        for (int t = 0; t <= D; t++) {
+            if (t == 1) v = hi;
+            else if (t >= 2) v = eadd(v, diff);
+            u[t] = any ? emul(u[t], v) : v;
+        }
+        any = true;
+    }
+    if (it.prod < 0) return;
+#pragma unroll
+    for (int t = 0; t <= D; t++) {
+        const ext v = any ? u[t] : ext{1, 0};
+        acc[t] = {gl::wadd(acc[t].a0, v.a0), gl::wadd(acc[t].a1, v.a1)};
+    }
+}
+
+// The terms a thread gathered over its units of one item, reduced, times
+// the item's coefficient, into sums.
+template <int D>
+__device__ __forceinline__ void flush_item(const Item<D>& it, wext* acc, ext* sums) {
+    if (it.prod >= 0) {
+#pragma unroll
+        for (int t = 0; t <= D; t++) {
+            const ext a = {gl::canonical(gl::fold(acc[t].a0)), gl::canonical(gl::fold(acc[t].a1))};
+            sums[t] = eadd(sums[t], emul(a, it.c));
+        }
+    }
+#pragma unroll
+    for (int t = 0; t <= D; t++) acc[t] = {{0, 0}, {0, 0}};
 }
 
 // The block's sums into total[0..V), V = 2(D + 1) words (t-major, a0 then
@@ -316,27 +500,102 @@ __device__ __forceinline__ ext absorb_and_squeeze(sponge::State& st, u64 word, i
     return c;
 }
 
+// The round kernel's tables in shared memory: base (items + 1), meta (m)
+// and the item words (items x (D + 1)), when they fit in STAGE_LIMIT bytes
+// (a launch needs no opt-in up to 48 KB).
+constexpr int STAGE_LIMIT = 48 * 1024;
+
+template <int D>
+__host__ __device__ constexpr long long round_stage_bytes(int items, int m) {
+    return 8LL * (items + 1) + 8LL * m + 4LL * (D + 1) * items;
+}
+
 template <int D>
 __global__ void __launch_bounds__(ROUND_THREADS)
-round_kernel(const u64* __restrict__ s0, const u64* __restrict__ s1, u64* d0, u64* d1, int m,
-             const u64* __restrict__ meta, int drop, long long L, const u64* r0, const u64* r1,
-             const int* __restrict__ fidx, int np, const u64* __restrict__ c0, const u64* __restrict__ c1,
-             u64* __restrict__ partials) {
+round_kernel(const u64* __restrict__ s0, const u64* __restrict__ s1, u64* __restrict__ d0, u64* __restrict__ d1,
+             int m, const u64* __restrict__ meta, int drop, long long count, const u64* r0, const u64* r1,
+             int items, const int* __restrict__ word, const long long* __restrict__ base,
+             const u64* __restrict__ c0, const u64* __restrict__ c1, int staged, u64* __restrict__ partials) {
     constexpr int V = 2 * (D + 1);
     __shared__ u64 red[(ROUND_THREADS / 32) * V];
     __shared__ u64 total[V];
+    extern __shared__ __align__(16) unsigned char stage[];
     const bool fold = r0 != nullptr;
-    const long long count = fold ? L / 4 : L / 2;
-    const long long j = (long long)blockIdx.x * ROUND_THREADS + threadIdx.x;
-    ext sums[D + 1];
-#pragma unroll
-    for (int t = 0; t <= D; t++) sums[t] = {0, 0};
-    if (j < count) {
-        const ext r = fold ? ext{*r0, *r1} : ext{0, 0};
-        round_pass<D>(j, fold, s0, s1, d0, d1, m, meta, drop, r, fidx, np, c0, c1, sums);
+    Plan pl = {base, word, meta};
+    if (staged) {
+        long long* sb = reinterpret_cast<long long*>(stage);
+        u64* sm = reinterpret_cast<u64*>(sb + items + 1);
+        int* sw = reinterpret_cast<int*>(sm + m);
+        for (int k = threadIdx.x; k <= items; k += ROUND_THREADS) sb[k] = base[k];
+        for (int k = threadIdx.x; k < m; k += ROUND_THREADS) sm[k] = meta[k];
+        for (int k = threadIdx.x; k < items * (D + 1); k += ROUND_THREADS) sw[k] = word[k];
+        pl = {sb, sw, sm};
+        __syncthreads();
     }
+    ext sums[D + 1];
+    wext acc[D + 1];
+#pragma unroll
+    for (int t = 0; t <= D; t++) {
+        sums[t] = {0, 0};
+        acc[t] = {{0, 0}, {0, 0}};
+    }
+    Challenge r = {{0, 0}, 0};
+    if (fold) r = {{*r0, *r1}, fadd(*r0, *r1)};
+    const long long work = pl.base[items], nth = (long long)gridDim.x * ROUND_THREADS;
+    // the item of unit w: w only grows, so the search walks each item once
+    int i = -1;
+    long long lo = 0, hi = 0;  // the item's units
+    Item<D> it;
+    it.prod = -1;
+    for (long long w = (long long)blockIdx.x * ROUND_THREADS + threadIdx.x; w < work; w += nth) {
+        if (w >= hi) {
+            flush_item<D>(it, acc, sums);
+            do i++;
+            while (pl.base[i + 1] <= w);
+            lo = pl.base[i];
+            hi = pl.base[i + 1];
+            it = decode_item<D>(pl, c0, c1, i, hi - lo, count, fold, drop);
+        }
+        unit_pass<D>(it, w - lo, w + nth < hi ? w + nth - lo : -1, fold, r, s0, s1, d0, d1, acc);
+    }
+    flush_item<D>(it, acc, sums);
     block_sum<D>(sums, red, total);
     if (threadIdx.x < V) partials[(long long)blockIdx.x * V + threadIdx.x] = total[threadIdx.x];
+}
+
+// The round kernel's grid at degree D for `items` items over m rows: every
+// SM, with as many blocks as the occupancy calculator lets it hold at the
+// launch's shared memory (*stage_bytes, 0 when the tables stay in device
+// memory). Queried at every call, as the tail's grid is.
+template <int D>
+cudaError_t round_grid(int items, int m, int* blocks, int* per_sm, int* stage_bytes) {
+    const long long want = round_stage_bytes<D>(items, m);
+    *stage_bytes = want <= STAGE_LIMIT ? (int)want : 0;
+    int dev = 0, sms = 0, fits = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fits, round_kernel<D>, ROUND_THREADS, *stage_bytes);
+    if (err == cudaSuccess && fits * sms < 1) err = cudaErrorInvalidConfiguration;
+    *blocks = err == cudaSuccess ? fits * sms : 0;
+    *per_sm = fits;
+    return err;
+}
+
+template <int D>
+int launch_round(const void* s0, const void* s1, void* d0, void* d1, int m, const void* meta, int drop,
+                 long long count, const void* r0, const void* r1, int items, const void* word, const void* base,
+                 long long work, const void* c0, const void* c1, void* partials, int* blocks, cudaStream_t stream) {
+    int grid, per_sm, stage_bytes;
+    cudaError_t err = round_grid<D>(items, m, &grid, &per_sm, &stage_bytes);
+    if (err != cudaSuccess) return (int)err;
+    const long long need = (work + ROUND_THREADS - 1) / ROUND_THREADS;
+    *blocks = (int)(need < grid ? (need > 0 ? need : 1) : grid);
+    round_kernel<D><<<*blocks, ROUND_THREADS, stage_bytes, stream>>>(
+        (const u64*)s0, (const u64*)s1, (u64*)d0, (u64*)d1, m, (const u64*)meta, drop, count, (const u64*)r0,
+        (const u64*)r1, items, (const int*)word, (const long long*)base, (const u64*)c0, (const u64*)c1,
+        stage_bytes > 0, (u64*)partials);
+    return (int)cudaGetLastError();
 }
 
 // The partial messages' sum (V = 2(D + 1) words a row, row b at words
@@ -652,9 +911,8 @@ int launch_tail(void* x0, void* x1, void* y0, void* y1, int m, const void* meta,
         default: return (int)cudaErrorInvalidValue; \
     }
 
-extern "C" int dp_sumcheck_limits(int* max_degree, int* threads) {
+extern "C" int dp_sumcheck_limits(int* max_degree) {
     *max_degree = MAX_DEGREE;
-    *threads = ROUND_THREADS;
     return 0;
 }
 
@@ -671,23 +929,36 @@ extern "C" int dp_sumcheck_tail_config(int degree, int* blocks, int* threads, in
     return (int)err;
 }
 
-// One round above the tail on the rows in (s0, s1) after `drop` folds, the
-// longest L long. r0/r1 point at the previous challenge (both null in round
-// 0: no fold, d0/d1 unused); partials gets one 2(D + 1)-word row per block
-// of ROUND_THREADS pairs. Returns cudaGetLastError() of the launch.
-extern "C" int dp_sumcheck_round(int degree, const void* s0, const void* s1, void* d0, void* d1,
-                                 int m, const void* meta, int drop, long long L, const void* r0,
-                                 const void* r1, const void* fidx, int np, const void* c0, const void* c1,
-                                 void* partials, void* stream) {
-    const long long count = r0 ? L / 4 : L / 2;
-    const unsigned blocks = (unsigned)((count + ROUND_THREADS - 1) / ROUND_THREADS);
-#define DP_ROUND(D)                                                                          \
-    round_kernel<D><<<blocks, ROUND_THREADS, 0, (cudaStream_t)stream>>>(                            \
-        (const u64*)s0, (const u64*)s1, (u64*)d0, (u64*)d1, m, (const u64*)meta, drop, L, (const u64*)r0, \
-        (const u64*)r1, (const int*)fidx, np, (const u64*)c0, (const u64*)c1, (u64*)partials)
+// The round kernel's grid at `degree` for `items` items over m rows: the
+// most blocks a launch takes (the rows of partials it writes), blocks an
+// SM, and the shared memory it stages its tables in (0: none). Returns the
+// CUDA error that refuses the shape (0 = none).
+extern "C" int dp_sumcheck_round_config(int degree, int items, int m, int* blocks, int* per_sm,
+                                        int* stage_bytes) {
+    cudaError_t err = cudaErrorInvalidValue;
+#define DP_CONFIG(D) err = round_grid<D>(items, m, blocks, per_sm, stage_bytes)
+    DP_DISPATCH(degree, DP_CONFIG)
+#undef DP_CONFIG
+    return (int)err;
+}
+
+// One round above the tail on the rows in (s0, s1) after `drop` folds: the
+// round's `count` pairs (the longest row's, after its fold), r0/r1 the
+// previous challenge (both null in round 0: no fold, d0/d1 unused); the
+// schedule's `items` words and this round's bases (items + 1, the last
+// `work`); partials gets one 2(D + 1)-word row a block, *blocks of them.
+// Returns cudaGetLastError() of the launch.
+extern "C" int dp_sumcheck_round(int degree, const void* s0, const void* s1, void* d0, void* d1, int m,
+                                 const void* meta, int drop, long long count, const void* r0, const void* r1,
+                                 int items, const void* word, const void* base, long long work, const void* c0,
+                                 const void* c1, void* partials, int* blocks, void* stream) {
+    int err = (int)cudaErrorInvalidValue;
+#define DP_ROUND(D)                                                                                     \
+    err = launch_round<D>(s0, s1, d0, d1, m, meta, drop, count, r0, r1, items, word, base, work, c0, c1, \
+                          partials, blocks, (cudaStream_t)stream)
     DP_DISPATCH(degree, DP_ROUND)
 #undef DP_ROUND
-    return (int)cudaGetLastError();
+    return err;
 }
 
 extern "C" int dp_sumcheck_finish(int degree, const void* partials, long long nblocks, int rnd,

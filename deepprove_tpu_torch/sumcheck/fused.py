@@ -6,11 +6,15 @@ session `dt`. On a CUDA session the MLEs are laid end to end in one
 extension array (two int64 planes), each row at its own length (a row
 shorter than 2^n stands for its tiling over the high variables and is
 read modulo its length), and `csrc/sumcheck.cu` runs the rounds:
-while the rows are longer than 2^(TAIL_LOG + 1), each round is a grid-wide
-`round_kernel` (fold the previous challenge, form the message) and a
-one-block `finish_kernel` (sum the message, absorb it, squeeze the next
-challenge); then one `tail_kernel` runs every remaining round as one
-cooperative launch over the whole card (`tail_config`).
+while the rows are longer than 2^(TAIL_LOG + 1), each round is a
+`round_kernel` over a grid the size of the card (`round_config`: fold the
+previous challenge, form the message; its work laid out on the host once a
+shape by `round_plan`, one unit a product and pair of the product's own
+longest factor, so that a round costs the rows' own entries) and a
+one-block `finish_kernel` (sum the blocks' partial messages, absorb the
+message, squeeze the next challenge); then one `tail_kernel` runs every
+remaining round as one cooperative launch over the whole card
+(`tail_config`).
 A sumcheck of n > TAIL_LOG variables is 2 (n - TAIL_LOG) + 1 launches,
 one otherwise, besides the sponge launch of [n, max_degree]. On a CPU
 session the plain version runs: the per-round path of `prover.py` over the
@@ -59,19 +63,20 @@ def _lib():
     if _LIB is None:
         lib = kernels.library()
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.dp_sumcheck_round.argtypes = [i, p, p, p, p, i, p, i, ll, p, p, p, i, p, p, p, p]
+        lib.dp_sumcheck_round.argtypes = [i, p, p, p, p, i, p, i, ll, p, p, i, p, p, ll, p, p, p,
+                                          ctypes.POINTER(i), p]
+        lib.dp_sumcheck_round_config.argtypes = [i, i, i] + [ctypes.POINTER(i)] * 3
         lib.dp_sumcheck_finish.argtypes = [i, p, ll, i, i, p, p, p, p]
         lib.dp_sumcheck_tail.argtypes = [i, p, p, p, p, i, p, ll, i, i, p, i, p, p, p, p, p, p, p, p]
         lib.dp_sumcheck_tail_config.argtypes = [i] + [ctypes.POINTER(ctypes.c_int)] * 3
-        for fn in (lib.dp_sumcheck_round, lib.dp_sumcheck_finish, lib.dp_sumcheck_tail,
-                   lib.dp_sumcheck_tail_config):
+        for fn in (lib.dp_sumcheck_round, lib.dp_sumcheck_round_config, lib.dp_sumcheck_finish,
+                   lib.dp_sumcheck_tail, lib.dp_sumcheck_tail_config):
             fn.restype = ctypes.c_int
-        deg, threads = ctypes.c_int(), ctypes.c_int()
-        lib.dp_sumcheck_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
-        lib.dp_sumcheck_limits(ctypes.byref(deg), ctypes.byref(threads))
+        deg = ctypes.c_int()
+        lib.dp_sumcheck_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.dp_sumcheck_limits(ctypes.byref(deg))
         if deg.value != MAX_DEGREE:
             raise RuntimeError(f"sumcheck.cu takes degree {deg.value}, the wrapper {MAX_DEGREE}")
-        lib.threads = threads.value
         _LIB = lib
     return _LIB
 
@@ -136,13 +141,14 @@ class Stacked:
 
 
 def _layout(row_vars: list, device, planes=None) -> Stacked:
-    """Rows of 2^row_vars[i] entries end to end (a row of one entry takes
-    two places, so that the second buffer's place is offset / 2) in
-    `planes`, or in new empty ones."""
+    """Rows of 2^row_vars[i] entries end to end in `planes`, or in new empty
+    ones. A row of one or two entries takes four places, so that every row
+    starts at a multiple of 4 entries: at 16 bytes in the first buffer and,
+    at offset / 2, in the second, for the round kernel's 16-byte words."""
     offsets, off = [], 0
     for lg in row_vars:
         offsets.append(off)
-        off += max(2, 1 << lg)
+        off += max(4, 1 << lg)
     if planes is None:
         planes = torch.empty((2, off), dtype=torch.int64, device=device)
     words = tuple((o << 6) | lg for o, lg in zip(offsets, row_vars))
@@ -162,7 +168,7 @@ def stack_planes(vp: VirtualPolynomial) -> Stacked:
     """The MLEs' rows end to end, each at its own length, in fresh planes."""
     rows = [gf.to_ext(m) for m in vp.mles]
     row_vars = [r.shape[1].bit_length() - 1 for r in rows for _ in range(r.shape[0])]
-    if min(row_vars) > 0:  # no row of one entry: the rows are the planes, one copy each
+    if min(row_vars) > 1:  # no row of one or two entries: the rows are the planes, one copy each
         planes = [torch.cat([getattr(r, a).reshape(-1) for r in rows]) for a in ("a0", "a1")]
         return _layout(row_vars, rows[0].device, planes)
     st = _layout(row_vars, rows[0].device)
@@ -182,6 +188,89 @@ def row_words(m: int, length: int, drop: int, device) -> tuple[torch.Tensor, int
     return words, m * length * scale * 2 if drop & 1 else m * length // 2
 
 
+# ---------------------------------------------------------------------------
+# the round kernel's schedule
+# ---------------------------------------------------------------------------
+
+WRITES = 1 << 30  # a factor word's flag: this slot writes the row's folded entries (csrc/sumcheck.cu)
+
+
+def _pairs(lg: int) -> int:
+    """The pairs a row of 2^lg entries gives a round (a row of one entry: its one, twice)."""
+    return 1 << (lg - 1) if lg > 0 else 1
+
+
+@dataclasses.dataclass
+class RoundPlan:
+    """The round kernel's work over the rows' own entries, built on the host
+    from the rows' log-lengths and the products' factor lists. An item is a
+    product, or a row that no product lists (`finals` returns it, so it is
+    folded all the same). `words[i]` is item i's product (-1 for a row
+    alone), then `degree` factor words: the row, with WRITES in the one slot
+    that writes the row's folded entries (its first listing), or -1 for the
+    constant 1. `tops[i]` is the log-length of the item's longest row."""
+
+    words: list
+    tops: list
+
+    def spans(self, rnd: int) -> list:
+        """Each item's units in round rnd: the pairs of its longest row after
+        the round's fold (a row alone has none in round 0, which folds
+        nothing)."""
+        return [0 if w[0] < 0 and rnd == 0 else _pairs(max(top - rnd, 0)) for w, top in zip(self.words, self.tops)]
+
+    def bases(self, rnd: int) -> list:
+        """Item i's units in round rnd are bases[i] .. bases[i + 1] - 1."""
+        out = [0]
+        for s in self.spans(rnd):
+            out.append(out[-1] + s)
+        return out
+
+
+def round_plan(row_vars, factors, degree: int) -> RoundPlan:
+    """The round kernel's items for rows of 2^row_vars[i] entries and the
+    products' factor lists: the products in their order, then the rows that
+    no product lists."""
+    seen, words, tops = set(), [], []
+    for p, f in enumerate(factors):
+        slots = []
+        for r in f:
+            slots.append(r if r in seen else r | WRITES)
+            seen.add(r)
+        words.append([p] + slots + [-1] * (degree - len(f)))
+        tops.append(max((row_vars[r] for r in f), default=0))
+    for r in range(len(row_vars)):
+        if r not in seen:
+            words.append([-1, r | WRITES] + [-1] * (degree - 1))
+            tops.append(row_vars[r])
+    return RoundPlan(words=words, tops=tops)
+
+
+@dataclasses.dataclass
+class Schedule:
+    """A RoundPlan on the device: the item words (items, degree + 1) int32,
+    every round's bases (n, items + 1) int64, and each round's units."""
+
+    items: int
+    words: torch.Tensor
+    bases: torch.Tensor
+    work: list
+
+
+def schedule(row_vars, factors, degree: int, n: int, device) -> Schedule:
+    """The Schedule of a sumcheck of n variables, built once per shape (as
+    `meta`)."""
+    key = ("schedule", tuple(row_vars), tuple(tuple(f) for f in factors), degree, n, str(device))
+
+    def make():
+        plan = round_plan(row_vars, factors, degree)
+        bases = [plan.bases(rnd) for rnd in range(n)]
+        return Schedule(items=len(plan.words), words=torch.tensor(plan.words, dtype=torch.int32).to(device),
+                        bases=torch.tensor(bases, dtype=torch.int64).to(device), work=[b[-1] for b in bases])
+
+    return _cached(key, make)
+
+
 def _check(degree: int, device) -> None:
     if device.type != "cuda":
         raise ValueError(f"the sumcheck kernels take CUDA tensors, got {device}")
@@ -193,33 +282,54 @@ def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def round_cuda(src, dst, meta, m: int, drop: int, length: int, chals, rnd: int, n: int, fidx, coeffs: GF2,
-               partials, degree: int) -> int:
+def round_config(degree: int, items: int, m: int) -> dict:
+    """The round kernel's grid at `degree` for `items` items over m rows on
+    the current device: its most blocks (every SM, as many as the occupancy
+    calculator lets it hold: the partial rows a launch writes at most),
+    blocks an SM, and the bytes of shared memory its tables take (0: they
+    stay in device memory). Raises if the card can hold none."""
+    if not 1 <= degree <= MAX_DEGREE:
+        raise ValueError(f"the sumcheck kernels take degree 1..{MAX_DEGREE}, got {degree}")
+    blocks, per_sm, stage = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = _lib().dp_sumcheck_round_config(degree, items, m, ctypes.byref(blocks), ctypes.byref(per_sm),
+                                          ctypes.byref(stage))
+    kernels.check(err, "sumcheck round grid query")
+    return {"blocks": blocks.value, "blocks_per_sm": per_sm.value, "stage_bytes": stage.value}
+
+
+def round_cuda(src, dst, meta, m: int, drop: int, length: int, chals, rnd: int, n: int, sched: Schedule,
+               coeffs: GF2, partials, degree: int) -> int:
     """round_kernel on the m rows in src (a0, a1) after `drop` folds (placed
     by `meta`, the longest `length` long): fold by challenge rnd - 1 of
-    chals (2, n) into dst (skipped when rnd == 0; dst None), partial
-    messages into `partials`. Returns the number of blocks."""
+    chals (2, n) into dst (skipped when rnd == 0; dst None) over the units
+    of round rnd of `sched`; partial messages into `partials`, a row a
+    block. Returns the number of blocks."""
     _check(degree, src[0].device)
     lib = _lib()
     fold = rnd > 0
-    count = length // 4 if fold else length // 2
+    count = length // 4 if fold else length // 2  # the round's pairs
     if count < 1:
         raise ValueError(f"a round needs rows of at least {4 if fold else 2}, got {length}")
-    blocks = -(-count // lib.threads)
-    if partials.numel() < blocks * 2 * (degree + 1):
-        raise ValueError("partials scratch too small")
+    if count != 1 << (n - rnd - 1):
+        raise ValueError(f"round {rnd} of {n} on rows of {length}")
+    if any(t.data_ptr() % 16 for t in tuple(src) + (tuple(dst) if fold else ())):
+        raise ValueError("the round kernel moves rows in 16-byte words: align the planes to 16 bytes")
     r0 = chals[0, rnd - 1] if fold else None
     r1 = chals[1, rnd - 1] if fold else None
+    blocks = ctypes.c_int()
     with torch.cuda.device(src[0].device):
+        if partials.numel() < round_config(degree, sched.items, m)["blocks"] * 2 * (degree + 1):
+            raise ValueError("partials scratch too small")
         err = lib.dp_sumcheck_round(
             degree, src[0].data_ptr(), src[1].data_ptr(),
-            _ptr(dst[0]) if fold else None, _ptr(dst[1]) if fold else None, m, meta.data_ptr(), drop, length,
-            _ptr(r0), _ptr(r1), fidx.data_ptr(), fidx.shape[0], coeffs.a0.data_ptr(),
-            coeffs.a1.data_ptr(), partials.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            _ptr(dst[0]) if fold else None, _ptr(dst[1]) if fold else None, m, meta.data_ptr(), drop, count,
+            _ptr(r0), _ptr(r1), sched.items, sched.words.data_ptr(), sched.bases[rnd].data_ptr(),
+            sched.work[rnd], coeffs.a0.data_ptr(), coeffs.a1.data_ptr(), partials.data_ptr(),
+            ctypes.byref(blocks), torch.cuda.current_stream().cuda_stream,
         )
     kernels.check(err, "sumcheck round kernel launch")
     LAUNCHES["sumcheck_round"] += 1
-    return blocks
+    return blocks.value
 
 
 def finish_cuda(partials, blocks: int, rnd: int, n: int, msgs, chals, state, degree: int) -> None:
@@ -297,12 +407,12 @@ def prove_rounds_cuda(vp: VirtualPolynomial, dt, n: int, degree: int, st: Stacke
     cur, other = st.first, st.second()
     above = max(0, n - TAIL_LOG)
     if above:
-        partials = torch.empty(
-            -(-(length // 2) // _lib().threads) * 2 * (degree + 1), dtype=torch.int64, device=dev
-        )
+        sched = schedule(st.row_vars, [f for _, f in vp.products], degree, n, dev)
+        grid = round_config(degree, sched.items, m)["blocks"]
+        partials = torch.empty(grid * 2 * (degree + 1), dtype=torch.int64, device=dev)
     for rnd in range(above):
         drop = max(rnd - 1, 0)
-        blocks = round_cuda(cur, other, st.meta, m, drop, length, chals, rnd, n, fidx, coeffs, partials, degree)
+        blocks = round_cuda(cur, other, st.meta, m, drop, length, chals, rnd, n, sched, coeffs, partials, degree)
         finish_cuda(partials, blocks, rnd, n, msgs, chals, dt.state, degree)
         if rnd:
             cur, other, length = other, cur, length // 2

@@ -1,10 +1,13 @@
 """Two trees of the repo on one card, in turns: phases mlp_4m and cnn of
 each tree's chip_smoke.py, run as A, B, B, A, each turn in a process of
-its own (its warm prove medians, launches and peak memory printed), then,
-with --gpt2, phase gpt2 of tree B alone with its peak reserved memory.
-Times differ between calls to the card: compare only within one run.
+its own (its warm prove medians, launches and peak memory printed); with
+--kernels, phase kernel_times of each tree (the sponge and sumcheck
+kernels' device times) as A, B, B, A; with --gpt2, phase gpt2 of each
+tree as A, B, each with its peak reserved memory. --no-paths leaves out
+mlp_4m and cnn. Times differ between calls to the card: compare only
+within one run.
 
-    python3 scripts/compare_trees.py A_DIR B_DIR [--gpt2] [--out DIR]
+    python3 scripts/compare_trees.py A_DIR B_DIR [--kernels] [--gpt2] [--no-paths] [--out DIR]
 
 A_DIR and B_DIR are unpacked trees (e.g. `git archive <commit>`), each
 building its kernels into its own `_build`. The allocator runs with its
@@ -30,6 +33,12 @@ for f in (c.phase_mlp_4m, c.phase_cnn):
     r[x["phase"]] = {k: x[k] for k in ("prove_ms", "warm_runs", "cold_prove_ms", "setup_ms", "verify_ms",
                                        "launches_by_kernel", "peak_mem_gib", "transcript_pulls")}
 print("SUMMARY " + json.dumps(r), flush=True)
+'''
+KERNELS = r'''
+import json, chip_smoke as c
+c.phase_build()
+x = c.phase_kernel_times()
+print("SUMMARY " + json.dumps({k: x[k] for k in ("round", "finish", "tail")}, default=str), flush=True)
 '''
 GPT2 = r'''
 import json, torch, chip_smoke as c
@@ -65,10 +74,16 @@ def main() -> int:
     t0 = time.perf_counter()
     builds = [subprocess.Popen([sys.executable, "-c", BUILD], cwd=t) for t in (a, b)]
     print("build rcs", [p.wait() for p in builds], round(time.perf_counter() - t0, 2), flush=True)
-    for i, (tag, tree) in enumerate((("A", a), ("B", b), ("B", b), ("A", a))):
-        run(out, f"{i}_{tag}", tree, PATHS, 400)
+    turns = (("A", a), ("B", b), ("B", b), ("A", a))
+    if "--no-paths" not in args:
+        for i, (tag, tree) in enumerate(turns):
+            run(out, f"{i}_{tag}", tree, PATHS, 400)
+    if "--kernels" in args:
+        for i, (tag, tree) in enumerate(turns):
+            run(out, f"kernels_{i}_{tag}", tree, KERNELS, 400)
     if "--gpt2" in args:
-        run(out, "gpt2_B", b, GPT2, 600)
+        for tag, tree in turns[:2]:
+            run(out, f"gpt2_{tag}", tree, GPT2, 600)
     print("total s", round(time.perf_counter() - t0, 2), flush=True)
     return 0
 

@@ -28,7 +28,11 @@ name builds it; each runs setup and a warm prove, then prints:
      unprofiled warm prove, the kernels that take the most time, the
      Merkle-compression kernel's own time and launches, the launches made
      inside the sumchecks (each sumcheck a named range) and their device
-     time, each hand kernel's launches; then one more warm prove under
+     time, the device time and launches of the sumcheck with the most
+     device time and of the batch opening's sumcheck, each split into its
+     round, finish and tail kernels and the rest, each hand kernel's
+     launches;
+     then one more warm prove under
      torch.cuda.set_sync_debug_mode("warn"), counting torch's
      synchronizing calls by the line that made them;
   3. `kernel`: what limits the Merkle-compression kernel. Its SASS opcode
@@ -237,6 +241,9 @@ def build_path(cs, path):
     return mlp_chain_from_arrays(layers, device="cuda"), x_np
 
 
+RANGES = ("sumcheck", "batch_open_sumcheck")  # the profiler ranges: every sumcheck, the batch opening's
+
+
 def profile_path(cs, path) -> None:
     from deepprove_tpu_torch import glue
     from deepprove_tpu_torch.lookup import logup
@@ -315,12 +322,17 @@ def profile_path(cs, path) -> None:
     # one prove under the profiler, each sumcheck in a named range
     plain_prove_device = fused.prove_device
 
-    def ranged(vp, dt):
+    def ranged(vp, dt, **kw):
         with record_function("sumcheck"):
-            return plain_prove_device(vp, dt)
+            return plain_prove_device(vp, dt, **kw)
+
+    def opening_ranged(vp, dt, **kw):  # the batch opening passes its rows laid out (`stacked`)
+        with record_function("batch_open_sumcheck"):
+            return plain_prove_device(vp, dt, **kw)
 
     for mod in (fused,) + by_name + (convolution,):
         mod.prove_device = ranged
+    sumcheck_pkg.prove_device = opening_ranged  # the one caller that imports it at its call: basefold's opening
     cs.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         Prover(ctx, BasicTranscript(b"m2vec"), device="cuda").prove(trace)
@@ -331,25 +343,35 @@ def profile_path(cs, path) -> None:
     # the raw kineto events: building the profiler's FunctionEvent tree for
     # millions of launches takes longer than the prove itself
     per_kernel = collections.defaultdict(lambda: [0.0, 0])
-    windows, launch_at, kernel_us_by_corr = [], [], {}
+    windows, launch_at, kernel_us_by_corr, kernel_name_by_corr = [], [], {}, {}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == torch.autograd.DeviceType.CUDA:
-            if e.name() == "sumcheck":
+            if e.name() in RANGES:
                 continue  # the range's own record on the device timeline, not a kernel
             rec = per_kernel[e.name()[:160]]
             rec[0] += e.duration_ns() / 1e3
             rec[1] += 1
             kernel_us_by_corr[e.correlation_id()] = e.duration_ns() / 1e3
-        elif e.name() == "sumcheck":
-            windows.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+            kernel_name_by_corr[e.correlation_id()] = e.name()
+        elif e.name() in RANGES:
+            windows.append((e.start_ns(), e.start_ns() + e.duration_ns(), e.name()))
         elif "LaunchKernel" in e.name() or "LaunchCooperativeKernel" in e.name():  # the tail is cooperative
             launch_at.append((e.start_ns(), e.correlation_id()))
     windows.sort()
     in_sumcheck = []
+    # each sumcheck's device time by kernel: the round, finish and tail
+    # kernels, and the rest (the sponge's launch of [n, degree], torch ops)
+    split = collections.defaultdict(lambda: collections.defaultdict(lambda: [0.0, 0]))
     for t, corr in launch_at:
         i = bisect.bisect_right(windows, (t, float("inf"))) - 1
         if i >= 0 and windows[i][0] <= t <= windows[i][1]:
             in_sumcheck.append(corr)
+            name = kernel_name_by_corr.get(corr, "")
+            kind = next((k for k in ("round_kernel", "finish_kernel", "tail_kernel") if k in name), "other")
+            split[i][kind][0] += kernel_us_by_corr.get(corr, 0.0) / 1e3
+            split[i][kind][1] += 1
+    largest = max(split.values(), key=lambda d: sum(v[0] for v in d.values()), default={})
+    opening = [split[i] for i, w in enumerate(windows) if w[2] == RANGES[1]]
     kernel_us = sum(v[0] for v in per_kernel.values())
     merkle_k = [v for k, v in per_kernel.items() if cs.KERNEL in k]
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:10]
@@ -376,6 +398,9 @@ def profile_path(cs, path) -> None:
         "sumcheck_launches": len(in_sumcheck),
         "sumcheck_kernel_ms": sum(kernel_us_by_corr.get(c, 0.0) for c in in_sumcheck) / 1e3,
         "sumcheck_inclusive_ms": table["sumcheck"][0] * 1e3,
+        "largest_sumcheck_device": {k: {"ms": v[0], "launches": v[1]} for k, v in sorted(largest.items())},
+        "batch_open_sumcheck_device": [{k: {"ms": v[0], "launches": v[1]} for k, v in sorted(d.items())}
+                                       for d in opening],
         "launches_by_kernel": launches_by_kernel,
         "merkle_kernel_ms": sum(v[0] for v in merkle_k) / 1e3,
         "merkle_kernel_launches": sum(v[1] for v in merkle_k),

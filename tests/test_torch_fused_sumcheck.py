@@ -99,3 +99,62 @@ def test_tail_config_refuses_degrees_the_kernels_do_not_take(degree):
     """The tail's grid query refuses a degree before it reaches the library."""
     with pytest.raises(ValueError):
         fused.tail_config(degree)
+
+
+@pytest.mark.parametrize("degree", [0, 6])
+def test_round_config_refuses_degrees_the_kernels_do_not_take(degree):
+    """The round kernel's grid query refuses a degree before it reaches the library."""
+    with pytest.raises(ValueError):
+        fused.round_config(degree, 63, 126)
+
+
+def _round_shapes():
+    """name -> (num_vars, each row's log-length, the products' factor lists,
+    degree): the ragged kernel cases and the GPT-2-124M batch opening's rows
+    (an eq and a merged row a claim, R.GPT2_OPENING_CLAIMS)."""
+    shapes = {name: (n, rv, products, degree)
+              for name, (n, _, products, degree, _, rv) in R.SUMCHECK_RAGGED_CASES.items()}
+    rv = [lg for lg, claims in sorted(R.GPT2_OPENING_CLAIMS.items(), reverse=True) for _ in range(2 * claims)]
+    shapes["gpt2_opening"] = (max(rv), rv, [[2 * c, 2 * c + 1] for c in range(len(rv) // 2)], 2)
+    return shapes
+
+
+@pytest.mark.parametrize("case", list(_round_shapes()))
+def test_round_schedule_covers_each_rows_own_entries_once(case):
+    """The round kernel's schedule, by arithmetic on its units (item i
+    takes j = 0 .. span_i - 1 of every round): each product is one item
+    whose span is its longest factor's pairs after the round's fold, so
+    each of its own pairs is visited once; each row's folded entries have
+    one writer, whose units cover them once; the round's units are the
+    rows' own pairs (for the opening, half of them: two rows a claim), far
+    below the rows times the longest row's pairs."""
+    n, row_vars, factors, degree = _round_shapes()[case]
+    plan = fused.round_plan(row_vars, factors, degree)
+    products = [w[0] for w in plan.words if w[0] >= 0]
+    assert products == list(range(len(factors)))
+    writers = {}
+    for i, w in enumerate(plan.words):
+        assert len(w) == degree + 1
+        for slot in w[1:]:
+            if slot >= 0 and slot & fused.WRITES:
+                writers.setdefault(slot & (fused.WRITES - 1), []).append(i)
+    # one writing slot a row, every row (those no product lists too)
+    assert sorted(writers) == list(range(len(row_vars))) and all(len(v) == 1 for v in writers.values())
+    for rnd in range(n):
+        bases = plan.bases(rnd)
+        spans = [b - a for a, b in zip(bases, bases[1:])]
+        assert bases[0] == 0 and min(spans) >= 0
+        own = [fused._pairs(max(lg - rnd, 0)) for lg in row_vars]  # each row's pairs after the fold
+        for p, f in enumerate(factors):
+            assert spans[p] == max(own[r] for r in f)  # (p, j) for each own pair j, once
+            assert (1 << (n - rnd - 1)) % spans[p] == 0  # the coefficient's scale is a whole power of two
+        if rnd:  # a folding round: the writer's units j < own[r] write entries 2j, 2j + 1 (or the one entry)
+            entries = [1 << max(lg - rnd, 0) for lg in row_vars]
+            for r, (i,) in writers.items():
+                assert spans[i] >= own[r]
+                assert (2 * own[r] if entries[r] > 1 else 1) == entries[r]
+        alone = [own[r] for r, (i,) in writers.items() if plan.words[i][0] < 0]
+        assert bases[-1] == sum(max(own[r] for r in f) for f in factors) + (sum(alone) if rnd else 0)
+        if case == "gpt2_opening" and rnd < n - fused.TAIL_LOG:  # the rounds the round kernel runs
+            assert 2 * bases[-1] == sum(own)
+            assert bases[-1] * 100 < len(row_vars) * (1 << (n - rnd - 1))

@@ -55,12 +55,27 @@ SUMCHECK_EDGE_CASES = {
 # degree, tail start or None, each row's log-length). Rows of 2^11, 2 and 1
 # beside full ones, folded above a tail from 10; three sizes and a constant
 # row at degree 3, all in the tail; a row of 4 and one of 2^12 beside full
-# ones above the tail.
+# ones above the tail; the batch opening's shape, an (eq, merged) product
+# a claim at eight sizes from 2^16 down to 1, six rounds above a tail from
+# 10; at degree 3 above the same tail, a row of 2^12 in a product of span
+# 2^13 and in one of its own span, which mixes it with rows of 2^9 and
+# 2^5, a row of 2^13 that no product lists and a constant row.
 SUMCHECK_RAGGED_CASES = {
     "ragged_batch_open": (16, 8, [[0, 1], [2, 3], [4, 5], [6, 7]], 2, 10, [16, 16, 11, 11, 1, 1, 0, 0]),
     "ragged_three_sizes": (12, 6, [[0, 1, 2], [3, 4], [5, 1]], 3, None, [12, 7, 12, 3, 9, 0]),
     "ragged_above_tail": (13, 4, [[0, 1], [2, 3]], 2, 10, [13, 12, 2, 13]),
+    "ragged_opening_eight_sizes": (16, 16, [[2 * c, 2 * c + 1] for c in range(8)], 2, 10,
+                                   [lg for lg in (16, 15, 13, 11, 9, 6, 1, 0) for _ in range(2)]),
+    "ragged_shared_mixed_alone": (14, 7, [[0, 1, 2], [1, 3, 4], [3, 6], [2, 2]], 3, 10,
+                                  [14, 12, 14, 9, 5, 13, 0]),
 }
+
+# The batch opening of GPT-2-124M cut to two blocks (chip_smoke.py phase
+# gpt2, its largest stacked sumcheck: 512 rows, 1,284,445,184 entries):
+# claims by the log-length of their two rows (eq and merged), from the
+# phase's `rows_by_log_length` on an H100.
+GPT2_OPENING_CLAIMS = {28: 1, 27: 1, 26: 2, 24: 1, 23: 1, 22: 13, 20: 9, 18: 19, 17: 1, 16: 164, 15: 9, 14: 2,
+                       12: 2, 10: 25, 8: 6}
 
 # basefold: one 2^6 poly (RS path) and one 2^2 poly (trivial commitment)
 BASEFOLD_KW = dict(num_queries=11, basecode_msg_size_log=2)
